@@ -1,9 +1,10 @@
-"""implicitbvh_tpu — a TPU-native implicit BVH engine in JAX/XLA/Pallas.
+"""implicitbvh_tpu — an implicit BVH engine in JAX.
 
 A from-scratch re-design of the capabilities of ImplicitBVH.jl (the
 "Binary Ostensibly-Implicit Tree" BVH of Chitalu, Dubach & Komura, CGF 2020)
-for TPUs: SoA bounding volumes, fused sync-free builds, deterministic
-scan/compaction-based traversal, and ``jax.sharding`` multi-chip scaling.
+for accelerators: SoA bounding volumes, fused sync-free builds, a dense
+tile contact engine, deterministic scan/compaction-based tree traversal,
+and ``jax.sharding`` multi-device scaling.
 """
 
 from .options import BVHOptions, DEFAULT_OPTIONS

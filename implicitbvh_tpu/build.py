@@ -1,6 +1,6 @@
 """BVH construction: wrap -> Morton encode -> sort -> bottom-up aggregate.
 
-TPU-native counterpart of /root/reference/src/build.jl.  The whole build is
+Counterpart of /root/reference/src/build.jl.  The whole build is
 one fused XLA program with **zero host synchronisation**:
 
 - wrapping is an ``arange`` (ref wrap_bounding_volumes, build.jl:328-352);
@@ -25,7 +25,6 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from .morton import (DefaultMortonAlgorithm, ExtendedMortonAlgorithm,
                      morton_encode, morton_encode_extended)
@@ -41,7 +40,7 @@ class Leaves(NamedTuple):
     volumes plus user indices (reported in contacts) and Morton code slots.
 
     ``morton`` is an (N,) unsigned array, or a ``(hi, lo)`` pair of uint32
-    arrays for 64-bit codes on TPU (no native u64).
+    arrays for 64-bit codes without x64 (no uint64).
     """
 
     volume: Volume
@@ -79,8 +78,7 @@ def _sort_by_morton(leaves: Leaves) -> Leaves:
     """Sort leaves along the Z-curve (ref build.jl:248-253).
 
     Uses a single *variadic* ``lax.sort`` carrying every leaf field through
-    the comparator network — on TPU this is ~6x faster than sorting
-    (key, iota) and gathering, because arbitrary-index gathers scalarize.
+    the sort instead of sorting (key, iota) and gathering each field.
     """
     vol = leaves.volume
     if isinstance(vol, BSphere):
@@ -115,20 +113,11 @@ def _aggregate_bbox_fast(leaves_vol: Volume, tree: ImplicitTree,
     the plain union of the two spheres' boxes), every level is an
     associative reduction.
 
-    TPU formulation: stack the six box coordinates — negating ``up`` so all
-    six reduce with ``min`` — into one (6, N) array, pad the leaf level to
-    the perfect-tree width with max-finite sentinels (min-neutral, which
-    also reproduces the reference's virtual-right-child copy semantics),
-    and reduce each level pairwise.  Wide levels (>= 256 lanes) split
-    even/odd lanes with ONE 0/1 selection matmul per level — the MXU
-    eats strided-lane selection that is lane-shuffle-bound on the VPU
-    (the measured reshape-min pyramid runs at ~4.2e8 elem/s; see
-    CLAUDE.md build split) — then take an aligned-slice minimum; narrow
-    levels fall back to ``reshape(6, -1, 2).min(-1)``.  The sentinel must
-    be FINITE: a selection matmul's zero terms would turn ``0 * inf``
-    into NaN.  ``precision=HIGHEST`` keeps the f32 products bit-exact
-    (bf16x6 chunks sum back to the exact f32 value; the only other
-    products are x0).
+    The six box coordinates are stacked — ``up`` negated so all six reduce
+    with ``min`` — into one (6, N) array, the leaf level is padded to the
+    perfect-tree width with +inf (min-neutral, which also reproduces the
+    reference's virtual-right-child copy semantics), and each level is one
+    ``reshape(6, -1, 2).min(-1)`` halving of the one below.
     """
     from .volumes import bbox_of_bsphere
     levels = tree.levels
@@ -145,30 +134,14 @@ def _aggregate_bbox_fast(leaves_vol: Volume, tree: ImplicitTree,
     full = 1 << (levels - 1)
     n = tree.real_leaves
     if full > n:
-        pad = jnp.full((6, full - n), jnp.finfo(dtype).max, dtype)
+        pad = jnp.full((6, full - n), jnp.inf, dtype)
         stacked = jnp.concatenate([stacked, pad], axis=1)
-
-    # (SL, SL) selection: column i picks lane 2i, column SL//2 + i picks
-    # lane 2i + 1 — one matmul splits a block's even/odd lanes
-    SL = 256
-    sel = np.zeros((SL, SL), np.float64)
-    sel[2 * np.arange(SL // 2), np.arange(SL // 2)] = 1.0
-    sel[2 * np.arange(SL // 2) + 1, SL // 2 + np.arange(SL // 2)] = 1.0
-    sel = jnp.asarray(sel, dtype)
 
     per_level = {}
     c = stacked
     stop = max(built_level, 1)
     for lvl in range(levels - 1, stop - 1, -1):
-        if c.shape[1] >= SL:
-            cb = c.reshape(6, -1, SL)
-            out = jax.lax.dot_general(
-                cb, sel, (((2,), (0,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST)
-            c = jnp.minimum(out[..., :SL // 2],
-                            out[..., SL // 2:]).reshape(6, -1)
-        else:
-            c = c.reshape(6, -1, 2).min(-1)
+        c = c.reshape(6, -1, 2).min(-1)
         per_level[lvl] = c[:, :tree.level_nodes(lvl)]
 
     chunks = []
@@ -326,40 +299,40 @@ def build(bounding_volumes: Union[Volume, Leaves],
     """
     del cache  # buffer reuse is handled by XLA donation under jit
 
-    if options.index_bits == 64 and not jax.config.jax_enable_x64:
-        # without x64, jnp silently narrows int64 -> int32: a user asking
-        # for 64-bit indices on a > 2^31-pair workload would get silent
-        # wraparound rather than a loud failure
-        raise ValueError(
-            "BVHOptions(index_bits=64) requires jax_enable_x64 "
-            "(jax.config.update('jax_enable_x64', True)); note the TPU "
-            "backend itself has no native int64 — prefer 32-bit indices "
-            "on-device")
+    with jax.named_scope("build"):
+        if options.index_bits == 64 and not jax.config.jax_enable_x64:
+            # without x64, jnp silently narrows int64 -> int32: a user asking
+            # for 64-bit indices on a > 2^31-pair workload would get silent
+            # wraparound rather than a loud failure
+            raise ValueError(
+                "BVHOptions(index_bits=64) requires jax_enable_x64 "
+                "(jax.config.update('jax_enable_x64', True)); prefer "
+                "32-bit indices on-device")
 
-    if isinstance(bounding_volumes, Leaves):
-        leaves = bounding_volumes
-        leaves = Leaves(leaves.volume,
-                        jnp.asarray(leaves.index, options.index_dtype),
-                        leaves.morton)
-    else:
-        leaves = wrap_bounding_volumes(bounding_volumes, options, indices)
+        if isinstance(bounding_volumes, Leaves):
+            leaves = bounding_volumes
+            leaves = Leaves(leaves.volume,
+                            jnp.asarray(leaves.index, options.index_dtype),
+                            leaves.morton)
+        else:
+            leaves = wrap_bounding_volumes(bounding_volumes, options, indices)
 
-    n = leaves.index.shape[0]
-    tree = ImplicitTree.from_num_leaves(n)
-    built_ilevel = compute_build_level(tree, built_level)
+        n = leaves.index.shape[0]
+        tree = ImplicitTree.from_num_leaves(n)
+        built_ilevel = compute_build_level(tree, built_level)
 
-    alg = options.morton
-    if isinstance(alg, ExtendedMortonAlgorithm):
-        morton = morton_encode_extended(leaves.volume, alg)
-    elif isinstance(alg, DefaultMortonAlgorithm):
-        morton = morton_encode(center_coords(leaves.volume), alg)
-    else:
-        raise TypeError(f"unsupported morton algorithm {alg}")
-    leaves = Leaves(leaves.volume, leaves.index, morton)
-    leaves = _sort_by_morton(leaves)
+        alg = options.morton
+        if isinstance(alg, ExtendedMortonAlgorithm):
+            morton = morton_encode_extended(leaves.volume, alg)
+        elif isinstance(alg, DefaultMortonAlgorithm):
+            morton = morton_encode(center_coords(leaves.volume), alg)
+        else:
+            raise TypeError(f"unsupported morton algorithm {alg}")
+        leaves = Leaves(leaves.volume, leaves.index, morton)
+        leaves = _sort_by_morton(leaves)
 
-    nodes = _aggregate(leaves.volume, tree, built_ilevel, node_kind)
-    skips = compute_skips(tree, options.index_dtype)
+        nodes = _aggregate(leaves.volume, tree, built_ilevel, node_kind)
+        skips = compute_skips(tree, options.index_dtype)
 
-    return BVH(skips=skips, nodes=nodes, leaves=leaves,
-               built_level=built_ilevel, tree=tree)
+        return BVH(skips=skips, nodes=nodes, leaves=leaves,
+                   built_level=built_ilevel, tree=tree)

@@ -1,6 +1,6 @@
 """Morton (Z-order) encoding of bounding-volume centers.
 
-TPU-native counterpart of /root/reference/src/morton/ — the canonical 3D
+Counterpart of /root/reference/src/morton/ — the canonical 3D
 bit-interleave with per-width bit splitting (5/10/21 bits per axis for
 16/32/64-bit codes), extrema computation with epsilon expansion, and the
 ``MortonAlgorithm`` extension point.
@@ -10,10 +10,10 @@ two reductions (extrema) + one elementwise pass (quantize + split).  The
 reference launches device kernels through AcceleratedKernels for the same
 steps (src/morton/default.jl:43-108, src/morton/utils.jl:1-72).
 
-64-bit codes: on CPU (and with ``jax.config.update('jax_enable_x64', True)``)
-native ``uint64`` is used.  TPUs have no native 64-bit integer path, so the
-``uint64`` option transparently falls back to a (hi, lo) pair of ``uint32``
-arrays packed into the *sort key only* — see ``build.py``.
+64-bit codes: with ``jax.config.update('jax_enable_x64', True)`` native
+``uint64`` is used.  Without x64 JAX has no 64-bit integers, so the
+``uint64`` option falls back to a (hi, lo) pair of ``uint32`` arrays used
+as a two-key sort — see ``build.py``.
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ def morton_split3(v, bits: int):
 
 def _split3_21bit_hi_lo(v):
     """Split a 21-bit integer (as uint32) into the (hi, lo) uint32 halves of
-    the 63-bit spread pattern — the TPU-friendly uint64 fallback.
+    the 63-bit spread pattern — the uint64 fallback without x64.
 
     bit j of v lands at spread position 3*j; positions 0..31 -> lo,
     32..62 -> hi.  Bits j<=10 go fully to lo (3*10=30); j>=11 to hi.
@@ -215,7 +215,7 @@ class ExtendedMortonAlgorithm(MortonAlgorithm):
     16-bit, (7, 4, on) for 32-bit, (7, 6, on) for 64-bit — i.e. every 7th
     code bit stores quantized primitive extent, up to the budget.
 
-    TPU-first redesign (not a translation):
+    A redesign, not a translation:
     - the bit schedule depends on the scene extents, which are traced
       inside the fused build; the longest-axis split loop therefore runs on
       traced (3,)-scalars, and only the *axis choice* per bit is dynamic —
@@ -225,7 +225,7 @@ class ExtendedMortonAlgorithm(MortonAlgorithm):
       reference promotes to Float64; only a degenerate scene with two
       zero-extent axes could want more than 24 bits on one axis);
     - 64-bit codes return the (hi, lo) uint32 pair used as a two-key sort
-      (TPUs have no native uint64), like :class:`DefaultMortonAlgorithm`.
+      (without x64), like :class:`DefaultMortonAlgorithm`.
     """
 
     bits: int = 32

@@ -1,3 +1,6 @@
-from .tile_contact import tile_pair_contacts
+from .subtile import subtile_band_bits
+from .tile_contact import (band_emit, band_row_counts, band_row_counts_triton,
+                           contact_mask)
 
-__all__ = ["tile_pair_contacts"]
+__all__ = ["band_emit", "band_row_counts", "band_row_counts_triton",
+           "contact_mask", "subtile_band_bits"]

@@ -1,31 +1,19 @@
-"""Phase-1b Pallas kernel: per-candidate-pair sub-tile band bits.
+"""Phase-1b band bits: which a-side sub-bands can touch which b-side tiles.
 
-The tile-contact kernel's mask runs at measured VPU peak, but 99.998% of
-its leaf tests miss (57.9k real contacts from 3.7e9 tests at 1M leaves) —
-the candidate count itself must drop.  This kernel computes, for every
-surviving supertile pair of phase 1, an ``n_bands``-bit mask per
-(a-tile, b-tile) pair saying which (G/n_bands)-leaf sub-bands of the
-a-tile overlap the b-tile's AABB.  The count kernel then skips whole
-(G/n_bands, G) mask bands via ``pl.when`` (ops/tile_contact.py), and
-``bits > 0`` doubles as a stricter pair filter than the tile-vs-tile AABB
-test (every leaf lies inside some sub-band box, so a pair with no
-overlapping band holds no contacts).
-
-``n_bands`` in {4, 8, 16}: finer bands shrink the mask quantum the count
-kernel pays per live band ((32, 128) -> (8, 128) lane-ops at 16) at the
-cost of more phase-1b compute and n_bands/8 int32 words per 8-tile run.
-Bands pack in *groups of 4* per 128-lane row (4 bands x 32 tiles), so the
-kernel runs ``n_bands // 4`` overlap planes.
-
-It also *replaces* the XLA row-gather stage of phase 1: instead of
-gathering level-B tile AABBs (12 gathers of (SP_cap, 32) rows — measured
-6.7 ms at 1M), the supertile rows arrive as scalar-prefetch-indexed
-BlockSpec DMAs, the TPU-native way to gather contiguous rows.
+Nearly every leaf test of a tile pair misses (57.9k contacts from 1.6e9
+candidate tests on the 1M-leaf benchmark scene), so the candidate count
+itself must drop.  For every surviving supertile pair of phase 1 this
+computes an ``n_bands``-bit word per (a-tile, b-tile) pair saying which
+(G / n_bands)-leaf sub-bands of the a-tile overlap the b-tile's AABB.  The
+count pass then tests only the live (band, b-tile) blocks, and ``bits > 0``
+is a stricter pair filter than the tile-vs-tile AABB test (every leaf lies
+inside its sub-band box, so a pair with no overlapping band holds no
+contacts).
 
 Semantics parity note: this is a broad-phase refinement with no reference
 counterpart — the reference prunes via its implicit tree instead
 (ref src/traverse/traverse.jl:19-34); contact sets are unchanged because
-band boxes cover all leaves (conservative superset, like the tile pass).
+band boxes cover all leaves.
 """
 
 from __future__ import annotations
@@ -34,155 +22,58 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 SS = 32        # tiles per supertile (matches traverse/tiles.py phase 1)
-N_BANDS = 4    # default sub-bands per tile; SS * 4 = 128 = one lane row
 
 
-def _a_rows(n_bands: int) -> int:
-    """Sublane count of the packed a-side block: 6 bounds x (n_bands // 4)
-    groups, padded to a multiple of 8 (TPU block divisibility)."""
-    return -(-6 * (n_bands // 4) // 8) * 8
-
-
-def _bits_kernel(triangle: bool, Ta: int, Tb: int, NB: int,
-                 si_ref, sj_ref, nsp_ref,    # scalar prefetch
-                 a_ref, b_ref, out_ref):
-    """One supertile pair per grid step.
-
-    a block (1, A_ROWS, 128): row ``k * groups + g`` = bound k (lo0, lo1,
-    lo2, up0, up1, up2) of band group g; lane = band_in_group * SS +
-    tile_in_supertile (band-major so band r is the contiguous sublane
-    slice [r*SS, (r+1)*SS) after the column relayout — Mosaic rejects
-    strided sublane slicing).
-    b block (1, 8, 128): rows 0-5 = tile bounds, lanes [0, SS) valid
-    (pad lanes hold +inf lo / -inf up so they never overlap).
-    out block (1, SS, 128) int32: bits[i, j] for a-tile i, b-tile j; bit
-    ``g * 4 + b`` = sub-band g*4+b of a-tile i overlaps b-tile j.
-    """
-    groups = NB // 4
-    p = pl.program_id(0)
-
-    @pl.when(p >= nsp_ref[0])
-    def _():
-        out_ref[0] = jnp.zeros((SS, 128), jnp.int32)
-
-    @pl.when(p < nsp_ref[0])
-    def _():
-        a_blk = a_ref[0]                       # (A_ROWS, 128)
-        b_blk = b_ref[0]
-        bits = jnp.zeros((SS, 128), jnp.int32)
-        for g in range(groups):
-            band = None
-            for k in range(3):
-                alo = a_blk[k * groups + g][:, None]       # (128, 1)
-                aup = a_blk[(3 + k) * groups + g][:, None]
-                blo = b_blk[k][None, :]        # (1, 128) cols j
-                bup = b_blk[3 + k][None, :]
-                ov = (aup >= blo) & (alo <= bup)   # (128, 128)
-                band = ov if band is None else band & ov
-
-            # int32 before sublane-slicing (mask-vector slices and vector
-            # shifts are off Mosaic's well-trodden path); bit g*4+b set
-            # via multiply by the static weight
-            bandi = jnp.where(band, 1, 0)
-            for b in range(4):
-                bits = bits + bandi[b * SS:(b + 1) * SS, :] * \
-                    (1 << (g * 4 + b))
-
-        si_p = si_ref[p]
-        sj_p = sj_ref[p]
-        tii = si_p * SS + jax.lax.broadcasted_iota(jnp.int32, (SS, 128), 0)
-        tjj = sj_p * SS + jax.lax.broadcasted_iota(jnp.int32, (SS, 128), 1)
-        valid = (tii < Ta) & (tjj < Tb)
-        valid &= jax.lax.broadcasted_iota(jnp.int32, (SS, 128), 1) < SS
-        if triangle:
-            valid &= tii <= tjj
-        out_ref[0] = jnp.where(valid, bits, 0)
-
-
-def _pack_sub(sub_lo, sub_up, S: int, NB: int):
-    """Sub-band bounds (T, NB) x 6 -> (S, A_ROWS, 128) f32; row
-    ``k * groups + g`` holds bound k of band group g, lanes band-major
-    within the group (lane = band_in_group * SS + tile)."""
-    groups = NB // 4
-    rows_total = _a_rows(NB)
-    T = sub_lo[0].shape[0]
-    pad = S * SS - T
-    rows = []
-    for bounds, fill in ((sub_lo, jnp.inf), (sub_up, -jnp.inf)):
-        for c in bounds:
-            if pad:
-                c = jnp.concatenate(
-                    [c, jnp.full((pad, NB), fill, c.dtype)])
-            c3 = c.reshape(S, SS, NB)
-            for g in range(groups):
-                # (S, SS, 4) -> band-major (S, 4, SS) -> (S, 128)
-                rows.append(jnp.transpose(
-                    c3[:, :, 4 * g:4 * g + 4], (0, 2, 1)).reshape(S, 128))
-    rows += [jnp.zeros((S, 128), jnp.float32)] * \
-        (rows_total - 6 * groups)
-    return jnp.stack(rows, axis=1)             # (S, A_ROWS, 128)
-
-
-def _pack_tiles(tile_lo, tile_up, S: int):
-    """Tile bounds (T,) x 6 -> (S, 8, 128) f32, lanes [0, SS) valid."""
-    T = tile_lo[0].shape[0]
-    rows = []
-    for bounds, fill in ((tile_lo, jnp.inf), (tile_up, -jnp.inf)):
-        for c in bounds:
-            c = jnp.concatenate(
-                [c, jnp.full((S * SS - T,), fill, c.dtype)]) \
-                if S * SS - T else c
-            c = c.reshape(S, SS)
-            c = jnp.concatenate(
-                [c, jnp.full((S, 128 - SS), fill, c.dtype)], axis=1)
-            rows.append(c)
-    rows += [jnp.zeros((S, 128), jnp.float32)] * 2
-    return jnp.stack(rows, axis=1)             # (S, 8, 128)
+def _rows(c, S: int, fill):
+    """Pad (T, ...) to S * SS tiles with ``fill`` and view as (S, SS, ...)."""
+    pad = S * SS - c.shape[0]
+    if pad:
+        c = jnp.concatenate(
+            [c, jnp.full((pad,) + c.shape[1:], fill, c.dtype)])
+    return c.reshape((S, SS) + c.shape[1:])
 
 
 @functools.partial(
-    jax.jit, static_argnames=("Ta", "Tb", "triangle", "n_bands",
-                              "interpret"))
+    jax.jit, static_argnames=("Ta", "Tb", "triangle", "n_bands"))
 def subtile_band_bits(sub_lo, sub_up, tile_lo, tile_up, si, sj, nsp, *,
                       Ta: int, Tb: int, triangle: bool = True,
-                      n_bands: int = N_BANDS, interpret: bool = False):
-    """Band-bit matrices for every candidate supertile pair.
+                      n_bands: int = 4):
+    """Band-bit words for every candidate supertile pair.
 
-    - ``sub_lo``/``sub_up``: 3-tuples of (Ta, n_bands) f32 per-sub-band
-      bounds of the *a* side (lo/up per axis).
-    - ``tile_lo``/``tile_up``: 3-tuples of (Tb,) f32 tile bounds (*b*
-      side; equal to the a side for self-contact).
+    - ``sub_lo``/``sub_up``: 3-tuples of (Ta, n_bands) per-sub-band bounds
+      of the *a* side (lo/up per axis).
+    - ``tile_lo``/``tile_up``: 3-tuples of (Tb,) tile bounds of the *b*
+      side (equal to the a side's for self-contact).
     - ``si``/``sj``: (SP_cap,) int32 supertile pair rows/cols (a/b side).
-    - ``nsp``: (1,) int32 valid pair count.
+    - ``nsp``: number of valid supertile pairs.
 
-    Returns ``bits`` (SP_cap, SS, 128) int32 — bit r of ``bits[p, i, j]``
+    Returns ``bits`` (SP_cap, SS, SS) int32 — bit r of ``bits[p, i, j]``
     set iff sub-band r of a-tile ``si[p]*SS+i`` overlaps b-tile
-    ``sj[p]*SS+j`` (cols >= SS are zero).
+    ``sj[p]*SS+j``; zero for invalid pairs, tiles past ``Ta``/``Tb`` and,
+    with ``triangle``, below the diagonal (a-tile > b-tile).
     """
-    assert n_bands in (4, 8, 16), n_bands
-    SP_cap = si.shape[0]
-    a_pack = _pack_sub(sub_lo, sub_up, -(-Ta // SS), n_bands)
-    b_pack = _pack_tiles(tile_lo, tile_up, -(-Tb // SS))
-    A_ROWS = _a_rows(n_bands)
+    Sa = -(-Ta // SS)
+    Sb = -(-Tb // SS)
+    alo = [_rows(c, Sa, jnp.inf)[si][:, :, None, :] for c in sub_lo]
+    aup = [_rows(c, Sa, -jnp.inf)[si][:, :, None, :] for c in sub_up]
+    blo = [_rows(c, Sb, jnp.inf)[sj][:, None, :, None] for c in tile_lo]
+    bup = [_rows(c, Sb, -jnp.inf)[sj][:, None, :, None] for c in tile_up]
+    ov = (aup[0] >= blo[0]) & (alo[0] <= bup[0])
+    ov &= (aup[1] >= blo[1]) & (alo[1] <= bup[1])
+    ov &= (aup[2] >= blo[2]) & (alo[2] <= bup[2])     # (SP, SS, SS, NB)
+    wts = jnp.left_shift(1, jnp.arange(n_bands, dtype=jnp.int32))
+    bits = jnp.sum(jnp.where(ov, wts, 0), axis=3, dtype=jnp.int32)
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(SP_cap,),
-        in_specs=[
-            pl.BlockSpec((1, A_ROWS, 128),
-                         lambda p, si_r, sj_r, ns: (si_r[p], 0, 0)),
-            pl.BlockSpec((1, 8, 128),
-                         lambda p, si_r, sj_r, ns: (sj_r[p], 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, SS, 128), lambda p, *_: (p, 0, 0)),
-    )
-    return pl.pallas_call(
-        functools.partial(_bits_kernel, triangle, Ta, Tb, n_bands),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((SP_cap, SS, 128), jnp.int32),
-        interpret=interpret,
-    )(si, sj, nsp, a_pack, b_pack)
+    SP_cap = si.shape[0]
+    shape = (SP_cap, SS, SS)
+    tii = si[:, None, None] * SS + jax.lax.broadcasted_iota(jnp.int32,
+                                                            shape, 1)
+    tjj = sj[:, None, None] * SS + jax.lax.broadcasted_iota(jnp.int32,
+                                                            shape, 2)
+    valid = (tii < Ta) & (tjj < Tb)
+    valid &= jax.lax.broadcasted_iota(jnp.int32, shape, 0) < nsp
+    if triangle:
+        valid &= tii <= tjj
+    return jnp.where(valid, bits, 0)

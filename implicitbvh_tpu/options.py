@@ -1,8 +1,8 @@
 """BVHOptions — the frozen, hashable, jit-static configuration object.
 
-TPU-native counterpart of /root/reference/src/utils.jl:34-93.  The
-reference's CPU thread counts / per-op grain sizes and GPU block size map to
-XLA/Pallas tuning knobs here; index and Morton dtypes are kept with the same
+Counterpart of /root/reference/src/utils.jl:34-93.  The reference's CPU
+thread counts / per-op grain sizes and GPU block size have no counterpart
+here (XLA owns scheduling); index and Morton dtypes are kept with the same
 semantics (Int32 indices by default — the efficient width on accelerators,
 ref src/build.jl:383-385).
 """
@@ -26,7 +26,7 @@ class BVHOptions:
     - ``morton``: the Morton encoding algorithm object.
     - ``capacity_growth``: when a traversal's contact/frontier buffer
       overflows its static capacity, the Python wrapper re-runs with capacity
-      scaled by this factor (the TPU analogue of ``resize!``) — honored by
+      scaled by this factor (the XLA analogue of ``resize!``) — honored by
       the BFS frontier growth and by every tile-engine wrapper's
       capacity/pair-capacity growth loop (buffers round up to the engines'
       alignment quanta, so the effective factor is >= this value).
@@ -39,7 +39,7 @@ class BVHOptions:
     min_capacity: int = 64
     # Accepted for migration parity with the reference's GPU block size and
     # CPU threading knobs (ref src/utils.jl:43-56); XLA owns scheduling on
-    # TPU and Pallas tile sizes live in TileTraversal, so these are
+    # the device and tile sizes live in TileTraversal, so these are
     # validated but otherwise ignored.
     block_size: int = 256
     num_threads: int = 1

@@ -1,10 +1,11 @@
-"""Multi-chip scaling over a ``jax.sharding.Mesh``.
+"""Multi-device scaling over a ``jax.sharding.Mesh``.
 
 The reference is a single-device library (SURVEY.md §2.2: no distributed
-backend); this module is the TPU-native *extension*: scale collision
-detection and ray tracing across chips on ICI by sharding the
-embarrassingly-parallel *query lanes* (leaves / rays) while replicating the
-(small) tree, with ``shard_map`` + ``psum`` for the contact totals.
+backend); this module is an *extension*: scale collision detection and ray
+tracing across devices by sharding the embarrassingly-parallel work (query
+lanes for the walk, superpairs or ray slices for the tile engine) while
+replicating the (small) tree or leaf tiles, with ``shard_map`` + ``psum``
+for the contact totals.
 
 Design:
 
@@ -14,7 +15,7 @@ Design:
   elementwise/reduction work that XLA shards freely.
 - **Traversal** shards lanes: each device runs the stackless walk for its
   slice of leaves/rays against the replicated tree, writing contacts into
-  its own capacity slice.  Totals cross the ICI as one ``psum``; contact
+  its own capacity slice.  Totals cross devices as one ``psum``; contact
   buffers stay device-local (shape ``(n_dev * cap_per_dev, 2)`` overall).
 """
 
@@ -88,11 +89,11 @@ def sharded_self_contact(mesh: Mesh, bvh: BVH, capacity_per_device: int,
 
     Returns ``(total, contacts, counts, overflow)`` where ``contacts`` is
     ``(n_dev * capacity_per_device, 2)`` with each device's valid prefix in
-    its slice, ``total`` is the global contact count (psum over ICI),
+    its slice, ``total`` is the global contact count (psum over devices),
     ``counts`` is the per-device valid-prefix length ``(n_dev,)``, and
     ``overflow`` signals that some device produced more contacts than
     ``capacity_per_device`` (its slice is truncated) — mirroring the
-    single-chip fixed-capacity API contract.
+    single-device fixed-capacity API contract.
 
     Requires the leaf count to be divisible by the mesh size (pad upstream
     if needed).
@@ -128,15 +129,17 @@ def sharded_self_contact(mesh: Mesh, bvh: BVH, capacity_per_device: int,
 def sharded_rays(mesh: Mesh, bvh: BVH, points, directions,
                  capacity_per_device: int, start_level: int = 1,
                  narrow=None, axis: str = AXIS, engine: str = "tiles",
-                 alg=None, interpret: Optional[bool] = None):
+                 alg=None, pair_capacity: Optional[int] = None):
     """Ray traversal with rays sharded over ``mesh``; (3, N) ray matrices.
 
     ``engine="tiles"`` (default) runs the dense ray-tile engine per device:
-    each device coherence-sorts its own ray slice and runs the two-phase
-    run pipeline against the replicated leaf tiles — rays are
-    embarrassingly parallel, so the whole pipeline (phase 1 included)
-    scales with mesh size.  ``engine="walk"`` keeps the stackless-walk
-    fallback (any density, no Pallas).
+    each device coherence-sorts its own ray slice and runs the whole tile
+    pipeline against the replicated leaf tiles — rays are embarrassingly
+    parallel, so phase 1 included scales with mesh size.
+    ``engine="walk"`` runs the stackless LVT walk per device instead.
+    ``pair_capacity`` is each device's candidate-entry capacity for the
+    tile engine; by default twice the single-device estimate for its ray
+    slice, since a slice of rays is less coherent than the whole set.
 
     Returns ``(total, contacts, counts, overflow)`` like
     :func:`sharded_self_contact`; ray indices in contacts are *global*
@@ -153,25 +156,24 @@ def sharded_rays(mesh: Mesh, bvh: BVH, points, directions,
     d_l = (dirs[0], dirs[1], dirs[2])
 
     if engine == "tiles":
-        from ..traverse.ray_tiles import traverse_rays_tiles_fixed
+        from ..traverse.ray_tiles import (_ray_pair_capacity,
+                                          traverse_rays_tiles_fixed)
         from ..traverse.tiles import TileTraversal
-        alg = alg or TileTraversal(row_cap=8, emit_w=8)
-        cap_dev = capacity_per_device
-        # the emit stream flushes aligned 1024-contact quanta
-        cap_stream = max(1024, -(-cap_dev // 1024) * 1024)
+        alg = alg or TileTraversal()
+        if pair_capacity is None:
+            pair_capacity = 2 * _ray_pair_capacity(
+                -(-per_dev // alg.tile), alg.bands)
 
         def local_tiles(bvh_rep, p, d):
             dev = jax.lax.axis_index(axis)
             total, contacts, ov, _nc = traverse_rays_tiles_fixed(
-                bvh_rep, jnp.stack(p), jnp.stack(d), cap_stream,
-                alg=alg, narrow=narrow, interpret=interpret)
+                bvh_rep, jnp.stack(p), jnp.stack(d), capacity_per_device,
+                alg=alg, pair_capacity=pair_capacity, narrow=narrow)
             # globalize the 1-based ray indices (column 1; pad rows are 0)
             off = (dev * per_dev).astype(contacts.dtype)
             col = contacts[:, 1]
-            contacts = contacts.at[:, 1].set(
-                jnp.where(col > 0, col + off, 0))[:cap_dev]
-            over = (ov > 0) | (total > cap_dev)
-            overflow = jax.lax.psum(over.astype(jnp.int32), axis) > 0
+            contacts = contacts.at[:, 1].set(jnp.where(col > 0, col + off, 0))
+            overflow = jax.lax.psum((ov > 0).astype(jnp.int32), axis) > 0
             return (jax.lax.psum(total, axis), contacts,
                     total.reshape(1).astype(jnp.int32), overflow)
 
@@ -225,380 +227,167 @@ def sharded_rays(mesh: Mesh, bvh: BVH, points, directions,
 
 def sharded_tile_self_contact(mesh: Mesh, bvh: BVH,
                               capacity_per_device: int, *,
-                              alg=None, narrow=None, axis: str = AXIS,
-                              interpret: Optional[bool] = None):
-    """Self-contact on the dense-tile engine with phase 1 AND the kernel
-    grids sharded over the mesh — the production multi-chip path (the
-    walk-based :func:`sharded_self_contact` stays as the any-density
-    fallback; it is measured ~50x slower per chip at 65k leaves).
+                              alg=None, narrow=None, axis: str = AXIS):
+    """Self-contact on the dense-tile engine with phase 1 and both passes
+    sharded over the mesh (the walk-based :func:`sharded_self_contact`
+    stays as the reference-shaped alternative).
 
-    Only level A (the dense S x S supertile overlap + compaction — a few
-    hundred microseconds) runs replicated; the *superpair list* it
-    produces is split evenly across devices, and each device runs the
-    whole remaining pipeline on its slice: band-bit kernel, run packing /
-    sort / leader grouping, count kernel, regroup, emit stream, contact
-    extraction — all against the replicated leaf tiles.  A (ti, tj) tile
-    pair lives in exactly one superpair, so per-device contact sets are
-    disjoint and only the scalar totals cross the ICI (one psum).
-    (Round 3 ran all of phase 1 replicated — ~24% of the 1M step, an
-    Amdahl cap of ~3.4x on 8 chips; superpair sharding removes it.)
+    Only level A (the dense S x S supertile overlap and its compaction)
+    runs replicated; the *superpair list* it produces is dealt to the
+    devices, and each device runs the rest of the pipeline on its share:
+    band bits, entry compaction, count pass, emit pass and contact
+    mapping, all against the replicated leaf tiles.  A (ti, tj) tile pair
+    lives in exactly one superpair, so per-device contact sets are
+    disjoint and only scalar totals cross devices (one psum).
 
     Returns ``(total, contacts, counts, overflow)`` exactly like
     :func:`sharded_self_contact`: ``contacts`` is
     ``(n_dev * capacity_per_device, 2)`` with each device's valid prefix
     in its slice.
     """
-    from ..ops.subtile import subtile_band_bits
-    from ..ops.tile_contact import tile_group_emit, tile_run_counts
-    from ..traverse.tiles import (TileTraversal, _finish_contacts,
-                                  _merge_streams, _pair_capacity_for,
-                                  _phase1_superpairs, _regroup_emit_runs,
-                                  _run_chunk_cap, _runs_from_bits,
-                                  _step_caps, _tiled_fields)
+    from ..traverse.tiles import (TileTraversal, _phase1_superpairs,
+                                  _tiled_fields)
 
     alg = alg or TileTraversal()
-    G = alg.tile
-    R = alg.run_r
-    NB = alg.bands
-    SS = 32
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
     n_dev = mesh.shape[axis]
-    cap_dev = capacity_per_device
-    # the emit stream flushes aligned 1024-contact quanta; round its
-    # internal capacity up and slice back to the caller's contract
-    cap_stream = max(1024, -(-cap_dev // 1024) * 1024)
-    if alg.pair_cap > 128:
-        raise ValueError("sharded tile path needs pair_cap <= 128 "
-                         "(per-pair rows append as one lane row)")
-
     fields, sphere, tile_lo, tile_up, sub_lo, sub_up, T = \
-        _tiled_fields(bvh, G, NB)
-    if T >= 1 << 16:
-        raise ValueError("tile count exceeds 65536; raise the tile size")
-    pair_capacity = _pair_capacity_for(T)
-    W = alg.count_w
-    S_loc, CHUNK = _step_caps(-(-(pair_capacity // W + T) // n_dev))
-    ch_cap = _run_chunk_cap(W, R, NB)
-    if CHUNK > ch_cap:
-        CHUNK = ch_cap
-        S_loc = -(-S_loc // CHUNK) * CHUNK
-    pad_run = (-(-T // R) * R) // R
-    # level A replicated (cheap); superpairs dealt ROUND-ROBIN to devices
-    # (device d takes superpairs d, d + n_dev, ...): the compacted list is
-    # ordered row-major, so contiguous slices would pile the dense
-    # diagonal-region superpairs onto the low devices — striping balances
-    # live-run density and still keeps each device's valid entries a
-    # prefix (global index k * n_dev + d < nsp  <=>  k < ceil((nsp-d)/n)).
+        _tiled_fields(bvh, alg.tile, alg.bands)
+    P_loc = _local_pair_capacity(T, alg.bands, n_dev)
     si, sj, nsp, p1_over = _phase1_superpairs(
-        tile_lo, tile_up, pair_capacity, sp_round=16 * n_dev)
-    SP_loc = si.shape[0] // n_dev
-    si = si.reshape(SP_loc, n_dev).T.reshape(-1)   # device-major
-    sj = sj.reshape(SP_loc, n_dev).T.reshape(-1)
-    leaf_index = bvh.leaves.index
-    leaves = bvh.leaves
-    mask_kind = "sphere" if sphere else "box"
+        tile_lo, tile_up, P_loc * n_dev, sp_round=16 * n_dev)
+    si, sj = _deal(si, n_dev), _deal(sj, n_dev)
 
-    def local_fn(fields_rep, leaf_index_rep, leaves_rep, tl_rep, tu_rep,
-                 sl_rep, su_rep, nsp_rep, p1_over_rep, si_loc, sj_loc):
-        dev = jax.lax.axis_index(axis)
-        nsp_loc = jnp.clip((nsp_rep - dev + n_dev - 1) // n_dev, 0, SP_loc)
-        bits = subtile_band_bits(
-            sl_rep, su_rep, tl_rep, tu_rep, si_loc, sj_loc,
-            nsp_loc.reshape(1).astype(jnp.int32), Ta=T, Tb=T,
-            triangle=True, n_bands=NB, interpret=interpret)[:, :, :SS]
-        a_loc, run_idx, bm_flat, ns_done, _num_checks, p1_ov2 = \
-            _runs_from_bits(bits, si_loc, sj_loc, SS, G, W, S_loc, R,
-                            pad_run, NB)
-        b_flat = run_idx
-        cnt_parts = []
-        for start in range(0, S_loc, CHUNK):
-            ns_c = jnp.clip(ns_done - start, 0, CHUNK)
-
-            def run_chunk(start=start, ns_c=ns_c):
-                return tile_run_counts(
-                    a_loc[start:start + CHUNK],
-                    b_flat[start * W:(start + CHUNK) * W],
-                    tuple(w[start * W:(start + CHUNK) * W]
-                          for w in bm_flat),
-                    ns_c.reshape(1).astype(jnp.int32), fields_rep,
-                    mask_kind=mask_kind, G=G, W=W, R=R, NB=NB,
-                    dedup=True, interpret=interpret, with_colmax=True)
-
-            cnt_parts.append(jax.lax.cond(
-                ns_c > 0, run_chunk,
-                lambda: (jnp.zeros((CHUNK * W * R,), jnp.int32),
-                         jnp.zeros((CHUNK * W * R,), jnp.int32))))
-        counts, colmax = jax.lax.optimization_barrier(
-            (jnp.concatenate([p[0] for p in cnt_parts]),
-             jnp.concatenate([p[1] for p in cnt_parts])))
-        slot_overflow = jnp.any(counts > alg.pair_cap)
-
-        W2 = alg.emit_w
-        # emit steps per device <= distinct a-tiles in the slice (< S_loc)
-        # + one partial W2-group per a-tile
-        S2_cap, CHUNK2 = _step_caps(S_loc + cap_stream // (8 * W2))
-        E2_cap = max(4096, cap_stream // 8)
-        a_idx2, b_idx2, nsteps2, over2 = _regroup_emit_runs(
-            a_loc, b_flat, bm_flat, counts, W2, S2_cap, E2_cap, T, R, NB,
-            colmax=colmax)
-        cap_overflow = (nsteps2 > S2_cap) | over2
-        parts = []
-        for start in range(0, S2_cap, CHUNK2):
-            ns_c = jnp.clip(nsteps2 - start, 0, CHUNK2)
-
-            def emit_chunk(start=start, ns_c=ns_c):
-                return tile_group_emit(
-                    a_idx2[start:start + CHUNK2],
-                    b_idx2[start * W2:(start + CHUNK2) * W2],
-                    ns_c.reshape(1).astype(jnp.int32), fields_rep,
-                    mask_kind=mask_kind, G=G, W=W2,
-                    ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
-                    dedup=True, CAP=cap_stream, interpret=interpret)
-
-            gi_c, gj_c, tot_c, flags_c = jax.lax.cond(
-                ns_c > 0, emit_chunk,
-                lambda: (jnp.zeros((cap_stream,), jnp.float32),
-                         jnp.zeros((cap_stream,), jnp.float32),
-                         jnp.zeros((), jnp.int32),
-                         jnp.zeros((), jnp.int32)))
-            parts.append((gi_c, gj_c, tot_c))
-            cap_overflow = cap_overflow | ((flags_c & 1) > 0)
-            slot_overflow = slot_overflow | ((flags_c & 2) > 0)
-        # barrier: the merge consumes each chunk's (gi, gj, total) through
-        # several chains (two gather operands + the prefix totals); without
-        # it XLA rematerializes the emit pipeline per chain — measured
-        # +110 ms at 100k rays (same lesson as the count-kernel barrier)
-        parts = jax.lax.optimization_barrier(parts)
-        gi_pos, gj_pos, total_d = _merge_streams(parts, cap_stream)
-
-        narrow_fn = None
-        if narrow is not None:
-            def narrow_fn(gi, gj):
-                la = jax.tree_util.tree_map(lambda x: x[gi], leaves_rep)
-                lb = jax.tree_util.tree_map(lambda x: x[gj], leaves_rep)
-                return narrow(la, lb)
-
-        total_d, contacts_d = _finish_contacts(
-            gi_pos, gj_pos, total_d, leaf_index_rep, narrow_fn, cap_stream)
-        contacts_d = contacts_d[:cap_dev]
-        over = slot_overflow | cap_overflow | (total_d > cap_dev) \
-            | p1_over_rep | p1_ov2
-        overflow = jax.lax.psum(over.astype(jnp.int32), axis) > 0
-        return (jax.lax.psum(total_d, axis), contacts_d,
-                total_d.reshape(1), overflow)
+    def local_fn(fields_rep, leaves_rep, tl_rep, tu_rep, sl_rep, su_rep,
+                 nsp_rep, si_loc, sj_loc):
+        return _local_tile_contacts(
+            fields_rep, fields_rep, leaves_rep, leaves_rep, sl_rep, su_rep,
+            tl_rep, tu_rep, nsp_rep, si_loc, sj_loc, T, T, sphere, alg,
+            P_loc, capacity_per_device, narrow, axis, self_contact=True)
 
     fn = shard_map(
         local_fn, mesh=mesh,
-        in_specs=(P(), P(), P(), P(), P(), P(), P(), P(), P(),
-                  P(axis), P(axis)),
+        in_specs=(P(),) * 7 + (P(axis), P(axis)),
         out_specs=(P(), P(axis), P(axis), P()),
         check_vma=False,
     )
-    return fn(fields, leaf_index, leaves, tile_lo, tile_up, sub_lo, sub_up,
-              nsp, p1_over, si, sj)
+    total, contacts, counts, overflow = fn(
+        fields, bvh.leaves, tile_lo, tile_up, sub_lo, sub_up, nsp, si, sj)
+    return total, contacts, counts, overflow | p1_over
 
 
 def sharded_tile_pair(mesh: Mesh, bvh1: BVH, bvh2: BVH,
                       capacity_per_device: int, *,
-                      alg=None, narrow=None, axis: str = AXIS,
-                      interpret: Optional[bool] = None):
-    """Two-BVH tile traversal sharded over the mesh — the multi-chip
-    counterpart of traverse.tiles.traverse_tiles_pair_fixed, built exactly
-    like :func:`sharded_tile_self_contact`: the replicated level-A pass
+                      alg=None, narrow=None, axis: str = AXIS):
+    """Two-BVH tile traversal sharded over the mesh — the multi-device
+    counterpart of traverse.tiles.traverse_tiles_pair_fixed, built like
+    :func:`sharded_tile_self_contact`: the replicated level-A pass
     extracts overlapping (supertile-of-bvh1, supertile-of-bvh2) pairs from
     the full S1 x S2 grid (no triangle — the reference's pair-traversal
     semantics, ref traverse_pair_cpu.jl:615-645), the superpair list is
-    dealt round-robin across devices, and each device runs band bits ->
-    run packing -> count kernel -> regroup -> emit stream -> extraction
-    on its slice.  A (t1, t2) tile pair lives in exactly one superpair,
-    so per-device contact sets are disjoint.
+    dealt to the devices, and each device runs band bits -> entries ->
+    count -> emit -> contact mapping on its share.
 
     Returns ``(total, contacts, counts, overflow)``; ``contacts`` holds
     tree-order (index-in-bvh1, index-in-bvh2) rows per device slice.
     """
-    from ..ops.subtile import subtile_band_bits
-    from ..ops.tile_contact import tile_group_emit, tile_run_counts
-    from ..traverse.tiles import (SUPERPAIRS_PER_SUPERTILE, TileTraversal,
-                                  _compact_flat, _finish_contacts,
-                                  _merge_streams, _overlap,
-                                  _pair_capacity_for, _regroup_emit_runs,
-                                  _run_chunk_cap, _runs_from_bits,
-                                  _step_caps, _tiled_fields)
+    from ..traverse.tiles import (TileTraversal, _phase1_cross_superpairs,
+                                  _tiled_fields)
 
     alg = alg or TileTraversal()
-    G = alg.tile
-    R = alg.run_r
-    NB = alg.bands
-    SS = 32
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
     if bvh1.leaf_kind is not bvh2.leaf_kind:
         raise NotImplementedError(
             "tile pair traversal requires matching leaf volume kinds")
     n_dev = mesh.shape[axis]
-    cap_dev = capacity_per_device
-    cap_stream = max(1024, -(-cap_dev // 1024) * 1024)
-    if alg.pair_cap > 128:
-        raise ValueError("sharded tile path needs pair_cap <= 128 "
-                         "(per-pair rows append as one lane row)")
+    f1, sphere, tlo1, tup1, asub_lo, asub_up, T1 = \
+        _tiled_fields(bvh1, alg.tile, alg.bands)
+    f2, _, tlo2, tup2, _, _, T2 = _tiled_fields(bvh2, alg.tile)
+    P_loc = _local_pair_capacity((T1 + T2) // 2, alg.bands, n_dev)
+    si, sj, nsp, p1_over = _phase1_cross_superpairs(
+        tlo1, tup1, tlo2, tup2, P_loc * n_dev, sp_round=16 * n_dev)
+    si, sj = _deal(si, n_dev), _deal(sj, n_dev)
 
-    f1, sphere, tlo1, tup1, asub_lo, asub_up, T1 = _tiled_fields(bvh1, G, NB)
-    f2, _, tlo2, tup2, _, _, T2 = _tiled_fields(bvh2, G)
-    if max(T1, T2) >= 1 << 16:
-        raise ValueError("tile count exceeds 65536; raise the tile size")
-    pair_capacity = _pair_capacity_for((T1 + T2) // 2)
-    W = alg.count_w
-    S_loc, CHUNK = _step_caps(-(-(pair_capacity // W + T1) // n_dev))
-    ch_cap = _run_chunk_cap(W, R, NB)
-    if CHUNK > ch_cap:
-        CHUNK = ch_cap
-        S_loc = -(-S_loc // CHUNK) * CHUNK
-    pad_run = (-(-T2 // R) * R) // R
-    mask_kind = "sphere" if sphere else "box"
-
-    # level A replicated: full S1 x S2 supertile overlap, then the
-    # compacted superpair list dealt round-robin (see the self-contact
-    # path's density-balancing note)
-    def prep(tl, tu):
-        T = tl[0].shape[0]
-        S = -(-T // SS)
-        pad = S * SS - T
-
-        def padt(a, fill):
-            if pad:
-                a = jnp.concatenate([a, jnp.full((pad,), fill, a.dtype)])
-            return a
-        tl = tuple(padt(c, jnp.inf) for c in tl)
-        tu = tuple(padt(c, -jnp.inf) for c in tu)
-        return (tuple(c.reshape(S, SS).min(1) for c in tl),
-                tuple(c.reshape(S, SS).max(1) for c in tu), S)
-
-    slo1, sup1, S1 = prep(tlo1, tup1)
-    slo2, sup2, S2 = prep(tlo2, tup2)
-    ovA = _overlap(slo1, sup1, slo2, sup2)
-    SP_cap = max(S1 * SUPERPAIRS_PER_SUPERTILE,
-                 S2 * SUPERPAIRS_PER_SUPERTILE, 64, pair_capacity // 64)
-    SP_cap = -(-SP_cap // (16 * n_dev)) * (16 * n_dev)
-    kA = jnp.arange(S1 * S2, dtype=jnp.int32)
-    spacked, nsp = _compact_flat(ovA.reshape(-1), kA, SP_cap)
-    p1_over = nsp > SP_cap
-    si = spacked // S2
-    sj = spacked % S2
-    SP_loc = SP_cap // n_dev
-    si = si.reshape(SP_loc, n_dev).T.reshape(-1)   # device-major
-    sj = sj.reshape(SP_loc, n_dev).T.reshape(-1)
-    li1 = bvh1.leaves.index
-    li2 = bvh2.leaves.index
-    l1, l2 = bvh1.leaves, bvh2.leaves
-
-    def local_fn(f1_rep, f2_rep, li1_rep, li2_rep, l1_rep, l2_rep,
-                 tlo2_rep, tup2_rep, sl_rep, su_rep, nsp_rep, p1_over_rep,
-                 si_loc, sj_loc):
-        dev = jax.lax.axis_index(axis)
-        nsp_loc = jnp.clip((nsp_rep - dev + n_dev - 1) // n_dev, 0, SP_loc)
-        bits = subtile_band_bits(
-            sl_rep, su_rep, tlo2_rep, tup2_rep, si_loc, sj_loc,
-            nsp_loc.reshape(1).astype(jnp.int32), Ta=T1, Tb=T2,
-            triangle=False, n_bands=NB, interpret=interpret)[:, :, :SS]
-        a_loc, run_idx, bm_flat, ns_done, _num_checks, p1_ov2 = \
-            _runs_from_bits(bits, si_loc, sj_loc, SS, G, W, S_loc, R,
-                            pad_run, NB)
-        cnt_parts = []
-        for start in range(0, S_loc, CHUNK):
-            ns_c = jnp.clip(ns_done - start, 0, CHUNK)
-
-            def run_chunk(start=start, ns_c=ns_c):
-                return tile_run_counts(
-                    a_loc[start:start + CHUNK],
-                    run_idx[start * W:(start + CHUNK) * W],
-                    tuple(w[start * W:(start + CHUNK) * W]
-                          for w in bm_flat),
-                    ns_c.reshape(1).astype(jnp.int32), f1_rep, f2_rep,
-                    mask_kind=mask_kind, G=G, W=W, R=R, NB=NB,
-                    dedup=False, interpret=interpret, with_colmax=True)
-
-            cnt_parts.append(jax.lax.cond(
-                ns_c > 0, run_chunk,
-                lambda: (jnp.zeros((CHUNK * W * R,), jnp.int32),
-                         jnp.zeros((CHUNK * W * R,), jnp.int32))))
-        counts, colmax = jax.lax.optimization_barrier(
-            (jnp.concatenate([p[0] for p in cnt_parts]),
-             jnp.concatenate([p[1] for p in cnt_parts])))
-        slot_overflow = jnp.any(counts > alg.pair_cap)
-
-        W2 = alg.emit_w
-        S2_cap, CHUNK2 = _step_caps(S_loc + cap_stream // (8 * W2))
-        E2_cap = max(4096, cap_stream // 8)
-        a_idx2, b_idx2, nsteps2, over2 = _regroup_emit_runs(
-            a_loc, run_idx, bm_flat, counts, W2, S2_cap, E2_cap, T2, R,
-            NB, colmax=colmax)
-        cap_overflow = (nsteps2 > S2_cap) | over2
-        parts = []
-        for start in range(0, S2_cap, CHUNK2):
-            ns_c = jnp.clip(nsteps2 - start, 0, CHUNK2)
-
-            def emit_chunk(start=start, ns_c=ns_c):
-                return tile_group_emit(
-                    a_idx2[start:start + CHUNK2],
-                    b_idx2[start * W2:(start + CHUNK2) * W2],
-                    ns_c.reshape(1).astype(jnp.int32), f1_rep, f2_rep,
-                    mask_kind=mask_kind, G=G, W=W2,
-                    ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
-                    dedup=False, CAP=cap_stream, interpret=interpret)
-
-            gi_c, gj_c, tot_c, flags_c = jax.lax.cond(
-                ns_c > 0, emit_chunk,
-                lambda: (jnp.zeros((cap_stream,), jnp.float32),
-                         jnp.zeros((cap_stream,), jnp.float32),
-                         jnp.zeros((), jnp.int32),
-                         jnp.zeros((), jnp.int32)))
-            parts.append((gi_c, gj_c, tot_c))
-            cap_overflow = cap_overflow | ((flags_c & 1) > 0)
-            slot_overflow = slot_overflow | ((flags_c & 2) > 0)
-        parts = jax.lax.optimization_barrier(parts)
-        gi_pos, gj_pos, total_d = _merge_streams(parts, cap_stream)
-
-        narrow_fn = None
-        if narrow is not None:
-            def narrow_fn(gi, gj):
-                la = jax.tree_util.tree_map(lambda x: x[gi], l1_rep)
-                lb = jax.tree_util.tree_map(lambda x: x[gj], l2_rep)
-                return narrow(la, lb)
-
-        total_d, contacts_d = _finish_contacts(
-            gi_pos, gj_pos, total_d, li1_rep, narrow_fn, cap_stream,
-            leaf_index_b=li2_rep, sort_pairs=False)
-        contacts_d = contacts_d[:cap_dev]
-        over = slot_overflow | cap_overflow | (total_d > cap_dev) \
-            | p1_over_rep | p1_ov2
-        overflow = jax.lax.psum(over.astype(jnp.int32), axis) > 0
-        return (jax.lax.psum(total_d, axis), contacts_d,
-                total_d.reshape(1), overflow)
+    def local_fn(f1_rep, f2_rep, l1_rep, l2_rep, tlo2_rep, tup2_rep,
+                 sl_rep, su_rep, nsp_rep, si_loc, sj_loc):
+        return _local_tile_contacts(
+            f1_rep, f2_rep, l1_rep, l2_rep, sl_rep, su_rep, tlo2_rep,
+            tup2_rep, nsp_rep, si_loc, sj_loc, T1, T2, sphere, alg, P_loc,
+            capacity_per_device, narrow, axis, self_contact=False)
 
     fn = shard_map(
         local_fn, mesh=mesh,
-        in_specs=(P(), P(), P(), P(), P(), P(), P(), P(), P(), P(), P(),
-                  P(), P(axis), P(axis)),
+        in_specs=(P(),) * 9 + (P(axis), P(axis)),
         out_specs=(P(), P(axis), P(axis), P()),
         check_vma=False,
     )
-    return fn(f1, f2, li1, li2, l1, l2, tlo2, tup2, asub_lo, asub_up,
-              nsp, p1_over, si, sj)
+    total, contacts, counts, overflow = fn(
+        f1, f2, bvh1.leaves, bvh2.leaves, tlo2, tup2, asub_lo, asub_up, nsp,
+        si, sj)
+    return total, contacts, counts, overflow | p1_over
+
+
+def _local_pair_capacity(num_tiles: int, bands: int, n_dev: int) -> int:
+    """Per-device entry capacity: an even share of the single-device
+    capacity (superpairs are dealt round-robin, which balances density)."""
+    from ..traverse.tiles import _pair_capacity_for
+    share = -(-_pair_capacity_for(num_tiles, bands) // n_dev)
+    return -(-share // 1024) * 1024
+
+
+def _deal(a, n_dev: int):
+    """Deal a compacted list ROUND-ROBIN to devices (device d takes
+    entries d, d + n_dev, ...), laid out device-major for ``P(axis)``.
+    The superpair list is ordered row-major, so contiguous slices would
+    pile the dense diagonal-region superpairs onto the low devices;
+    striping balances them and still keeps each device's valid entries a
+    prefix (global index k * n_dev + d < nsp  <=>  k < ceil((nsp-d)/n))."""
+    return a.reshape(-1, n_dev).T.reshape(-1)
+
+
+def _local_tile_contacts(fa, fb, leaves_a, leaves_b, sub_lo, sub_up,
+                         tlo_b, tup_b, nsp, si_loc, sj_loc, Ta: int,
+                         Tb: int, sphere: bool, alg, P_loc: int,
+                         cap_dev: int, narrow, axis: str,
+                         self_contact: bool):
+    """One device's share of the sharded tile engine: its superpairs ->
+    band bits -> entries -> contacts, with psum'd totals and overflow."""
+    from ..ops.subtile import subtile_band_bits
+    from ..traverse.tiles import (_band_contacts, _entries_from_bits,
+                                  _finish_contacts, _leaf_narrow)
+
+    n_dev = jax.lax.psum(1, axis)
+    dev = jax.lax.axis_index(axis)
+    NB = alg.bands
+    nsp_loc = jnp.clip((nsp - dev + n_dev - 1) // n_dev, 0,
+                       si_loc.shape[0])
+    bits = subtile_band_bits(sub_lo, sub_up, tlo_b, tup_b, si_loc, sj_loc,
+                             nsp_loc, Ta=Ta, Tb=Tb, triangle=self_contact,
+                             n_bands=NB)
+    ea, eb, ne = _entries_from_bits(bits, si_loc, sj_loc, NB, P_loc)
+    mask_kind = "sphere" if sphere else "box"
+    gi, gj, raw = _band_contacts(fa, fb, ea, eb, ne, mask_kind, NB,
+                                 dedup=self_contact, capacity=cap_dev)
+    total, contacts = _finish_contacts(
+        gi, gj, raw, leaves_a.index, _leaf_narrow(narrow, leaves_a, leaves_b),
+        cap_dev, leaf_index_b=leaves_b.index, sort_pairs=self_contact)
+    over = (raw > cap_dev) | (ne > P_loc)
+    overflow = jax.lax.psum(over.astype(jnp.int32), axis) > 0
+    return (jax.lax.psum(total, axis), contacts, total.reshape(1),
+            overflow)
 
 
 def sharded_rebuild_traverse_step(mesh: Mesh, node_kind=BBox,
                                   capacity_per_device: int = 1 << 16,
                                   axis: str = AXIS, engine: str = "tiles",
                                   alg=None):
-    """The full moving-geometry step, multi-chip: rebuild the BVH from
-    updated leaf spheres and run sharded self-contact — the TPU analogue of
-    the reference's cache-reusing per-step rebuild loop (BASELINE config 5).
+    """The full moving-geometry step on several devices: rebuild the BVH
+    from updated leaf spheres and run sharded self-contact — the
+    counterpart of the reference's cache-reusing per-step rebuild loop
+    (BASELINE config 5).
 
-    ``engine``: "tiles" (the production dense-tile kernel path; ``alg`` is
-    its TileTraversal, whose slot caps must cover the scene since this
-    fixed-shape path has no growth loop — the overflow flag reports a
-    violation) or "walk" (the any-density stackless-walk fallback).
+    ``engine``: "tiles" (the dense-tile engine; ``alg`` is its
+    TileTraversal; this fixed-shape path has no growth loop, so the
+    overflow flag reports a capacity the scene exceeded) or "walk" (the
+    stackless LVT walk per leaf slice).
 
     Returns a jittable ``step(x, r) -> (total, contacts, counts, overflow)``.
     """

@@ -50,22 +50,24 @@ def _round_capacity(total: int, options: BVHOptions,
     return 1 << math.ceil(math.log2(need))
 
 
-def _default_algorithm(*bvhs: BVH) -> TraversalAlgorithm:
-    """Pick the default traversal algorithm, like the reference routes its
-    default to the fastest implementation (LVT, ref traverse.jl:26-34).
+# The engine each query kind gets on the GPU: the faster of the dense-tile
+# engine and the LVT walk, timed on one H100 at the benchmark sizes
+# (PERF.md, "Engine routing").  Other backends keep the LVT walk, the
+# reference's own default.
+GPU_ENGINES = {"self": "tiles", "pair": "tiles", "rays": "tiles"}
 
-    On TPU the dense-tile engine is the fastest contact path by a wide
-    margin (measured: 14x over the stackless LVT walk at 32k x 16k), so it
-    is the default there; on CPU (tests / interpret mode) the LVT walk
-    avoids per-shape Pallas interpreter compiles.
-    """
+
+def default_algorithm(kind: str, *bvhs: BVH) -> TraversalAlgorithm:
+    """Pick the default traversal algorithm for a query ``kind`` ("self",
+    "pair" or "rays"), like the reference routes its default to the
+    fastest implementation (LVT, ref traverse.jl:26-34).  The tile engine
+    needs one leaf volume kind across both trees."""
     import jax
 
-    if jax.default_backend() != "cpu":
-        from .tiles import TileTraversal
-        kinds = {b.leaf_kind for b in bvhs}
-        if len(kinds) == 1:
-            return TileTraversal()
+    from .tiles import TileTraversal
+    if jax.default_backend() == "gpu" and GPU_ENGINES[kind] == "tiles" \
+            and len({b.leaf_kind for b in bvhs}) == 1:
+        return TileTraversal()
     return LVTTraversal()
 
 
@@ -92,9 +94,10 @@ def traverse(bvh: BVH,
     whose ``contacts`` are (i, j) user-index pairs — sorted (min, max) for
     self-contact, tree-order (i1, i2) for pair contact.
 
-    ``start_level`` tunes where the *tree-walking* algorithms (LVT, BFS,
-    DFS) seed their frontier.  The dense-tile engine — the TPU default —
-    does not walk the tree at all (it re-derives coarse bounds from leaf
+    With no explicit algorithm the engine is :func:`default_algorithm`'s
+    choice for the backend.  ``start_level`` tunes where the
+    *tree-walking* algorithms (LVT, BFS, DFS) seed their frontier.  The
+    dense-tile engine does not walk the tree at all (it re-derives coarse bounds from leaf
     tiles), so an explicit ``start_level`` emits a ``UserWarning`` there
     rather than being silently dead; pass ``LVTTraversal()``/
     ``BFSTraversal()`` if start-level control matters.
@@ -109,7 +112,8 @@ def traverse(bvh: BVH,
         else:
             raise TypeError(f"unexpected positional argument {a!r}")
     if alg is None:
-        alg = _default_algorithm(*([bvh] if bvh2 is None else [bvh, bvh2]))
+        alg = (default_algorithm("self", bvh) if bvh2 is None
+               else default_algorithm("pair", bvh, bvh2))
 
     if bvh2 is not None:
         return _traverse_pair(bvh, bvh2, alg,

@@ -1,10 +1,10 @@
 """Breadth-first (BVTT frontier) traversal — single, pair, and rays.
 
-TPU-native counterpart of /root/reference/src/traverse/breadth_first/ and
+Counterpart of /root/reference/src/traverse/breadth_first/ and
 /root/reference/src/raytrace/breadth_first/.
 
 The reference's dynamically-resized BVTT double buffer + per-task prefix-sum
-repack (CPU) / two-level atomic queues (GPU) becomes, on TPU:
+repack (CPU) / two-level atomic queues (GPU) becomes, in XLA:
 
 - **static-capacity** frontier buffers with a validity count,
 - per level: one gather of node volumes, one vectorized overlap test,

@@ -6,7 +6,7 @@ upstream at src/traverse/traverse.jl:261): single-BVH contact detection
 that descends pair-subtrees depth-first instead of expanding a global
 BVTT frontier.  Contact sets are identical to LVT/BFS.
 
-TPU-first redesign (not a translation): the reference interleaves a
+A redesign, not a translation: the reference interleaves a
 per-level 4-wide check matrix with fixed-size stack buffers per thread;
 here every *lane* is one initial BVTT pair at ``start_level`` and carries
 an explicit per-lane stack of (i1, i2) implicit pairs in two (lanes,

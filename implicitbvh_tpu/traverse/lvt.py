@@ -1,6 +1,6 @@
 """Leaf-vs-tree traversal drivers (single BVH and BVH-vs-BVH).
 
-TPU-native counterpart of /root/reference/src/traverse/leaf_vs_tree/.
+Counterpart of /root/reference/src/traverse/leaf_vs_tree/.
 The per-leaf stack walk becomes the stackless lockstep walk of walk.py; the
 count -> exclusive-scan -> write output scheme is identical in structure to
 the reference (traverse_single.jl:52-78), with ``jnp.cumsum`` standing in

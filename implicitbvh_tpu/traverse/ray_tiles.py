@@ -1,33 +1,28 @@
-"""Dense tile fast path for ray traversal — the TPU-native ray engine.
+"""Dense tile engine for ray traversal.
 
-The stackless-walk ray path (raytrace.py) is gather-bound: each while-loop
-step random-gathers node volumes per ray lane and runs as long as the
-longest lane's walk.  This module replaces it for batch ray queries with
-the same dense scheme as tile self-contact (traverse/tiles.py):
+The same scheme as tile self-contact (traverse/tiles.py), with rays on the
+a side:
 
 1. Rays are sorted for coherence by (direction bin, Morton code of origin)
-   — direction bin = octant + dominant axis — and grouped into ray tiles of
-   ``G`` (128, one VPU lane row).
-2. Phase 1 (XLA): for every ray tile x leaf tile, a dense slab test of the
-   tile's rays against the leaf-tile AABB, any-reduced over the block's
-   rays, yields the candidate (ray-tile, leaf-tile) pair list (compacted,
-   packed ``rt << 16 | lt``).
-3. Phase 2 (Pallas, ops/tile_contact.py with a ray mask): one G x G block
-   of exact ray-vs-leaf intersection tests per candidate pair, compacted
-   in VMEM.
-4. Extraction maps sorted positions back to (leaf_user_index, iray) pairs
-   (1-based ray indices) — the reference's ray contact convention
+   — direction bin = octant + dominant axis — and grouped into ray tiles
+   of ``G``, each split into ``bands`` ray bands.
+2. Phase 1: a dense slab test of every ray against every leaf-tile AABB,
+   any-reduced over each ray band, yields the live (ray band, leaf tile)
+   entries, compacted with cumsum + scatter.
+3. Phase 2 (ops/tile_contact.py): the count pass tests each entry's
+   (rays, leaves) block with the exact ``isintersection`` predicate and
+   the emit pass streams the hits.
+4. Sorted positions map back to (leaf_user_index, iray) pairs (1-based ray
+   indices) — the reference's ray contact convention
    (ref src/raytrace/raytrace.jl:88-100).
 
-Contact-set semantics are identical to the reference's LVT ray traversal
+Contact sets equal the reference's LVT ray traversal
 (ref src/raytrace/leaf_vs_tree/leaf_vs_tree.jl:170-228): the tile pass
-tests a dense superset of the tree-pruned candidates with the exact
-``isintersection`` predicates.
+tests a superset of the tree-pruned candidates with the same predicates.
 """
 
 from __future__ import annotations
 
-import math
 from functools import partial
 from typing import Optional
 
@@ -37,10 +32,11 @@ import jax.numpy as jnp
 from ..build import BVH
 from ..morton import DefaultMortonAlgorithm, morton_encode
 from ..options import DEFAULT_OPTIONS, BVHOptions
-from .tiles import (RAY_CANDS_PER_RAY_TILE, TileTraversal,
-    _extract_contacts, _grow_alg, _tiled_fields, _use_interpret)
+from .tiles import (RAY_ENTRIES_PER_RAY_TILE, TileTraversal, _band_contacts,
+                    _compact_flat, _finish_contacts, _grow_loop,
+                    _initial_capacity, _live_bands, _overflow_bits,
+                    _tiled_fields)
 from .types import BVHTraversal
-
 
 
 def _sort_rays(p, d):
@@ -74,8 +70,7 @@ def _ray_tile_fields(p, d, perm, G: int):
             a = jnp.concatenate([a, jnp.full((pad,), fill, a.dtype)])
         return a.reshape(RT, G)
 
-    # NaN padding: every comparison against a padded ray is false, so no
-    # explicit validity guard is needed in the kernels
+    # NaN padding: every comparison against a padded ray is false
     nan = float("nan")
     fields = tuple(padded(p[k], nan) for k in range(3)) + \
         tuple(padded(d[k], nan) for k in range(3))
@@ -84,16 +79,10 @@ def _ray_tile_fields(p, d, perm, G: int):
 
 def _ray_tile_hits(rfields, tile_lo, tile_up, NB: int = 4):
     """(RT, T) int32 band bits: bit r set iff any ray of ray-tile rt's
-    (G/NB)-ray sub-band r hits leaf-tile t's AABB (bits > 0 = the old
-    any-ray hit).  The contact kernel skips dead mask bands via the bits —
-    useful-test density was only ~14% at tile granularity (rays that miss
-    the tile AABB still got tested against all its leaves)."""
-    RT = rfields[0].shape[0]
-    T = tile_lo[0].shape[0]
-    G = rfields[0].shape[1]
+    (G/NB)-ray band r hits leaf-tile t's AABB (forward slab test with the
+    reference's NaN semantics, as ``isintersection``)."""
+    RT, G = rfields[0].shape
     BH = G // NB
-    los = tuple(tile_lo)
-    ups = tuple(tile_up)
 
     def min2(a, b):
         return jnp.where(a < b, a, b)
@@ -101,180 +90,58 @@ def _ray_tile_hits(rfields, tile_lo, tile_up, NB: int = 4):
     def max2(a, b):
         return jnp.where(a > b, a, b)
 
-    # batch MB ray tiles per map step: one step per tile is dispatch-bound
-    # (782 tiny XLA loop steps measured 33 ms; batched ~6 ms)
-    MB = 8
-    RTB = -(-RT // MB)
-    padb = RTB * MB - RT
-    rflat = []
-    for f in rfields:
-        if padb:
-            f = jnp.concatenate(
-                [f, jnp.full((padb, G), jnp.nan, f.dtype)])
-        rflat.append(f.reshape(RTB, MB * G))
-    stacked = jnp.stack(rflat, axis=1)             # (RTB, 6, MB*G)
-
-    wts = (1 << jnp.arange(NB, dtype=jnp.int32))[None, :, None]
-
-    def block(blk):                                # (6, MB*G) -> (MB, T)
-        tmin = None
-        tmax = None
-        for k in range(3):
-            inv = (1.0 / blk[3 + k])[:, None]      # (MB*G, 1)
-            po = blk[k][:, None]
-            t1 = (los[k][None, :] - po) * inv      # (MB*G, T)
-            t2 = (ups[k][None, :] - po) * inv
-            lo = min2(t1, t2)
-            hi = max2(t1, t2)
-            tmin = lo if tmin is None else max2(tmin, lo)
-            tmax = hi if tmax is None else min2(tmax, hi)
-        hit = (tmin <= tmax) & (tmax >= 0)
-        hb = jnp.any(hit.reshape(MB * NB, BH, T), axis=1)
-        return jnp.sum(hb.reshape(MB, NB, T).astype(jnp.int32) * wts,
-                       axis=1, dtype=jnp.int32)
-
-    return jax.lax.map(block, stacked).reshape(RTB * MB, T)[:RT]
-
-
-@partial(jax.jit, static_argnames=("W", "S_cap", "R", "pad_run", "NB"))
-def _phase1_ray_runs(rfields, tile_lo, tile_up, W: int, S_cap: int,
-                     R: int, pad_run: int, NB: int = 4):
-    """Run-granularity candidate extraction for the two-phase ray path:
-    per ray tile, its candidate *aligned leaf-tile runs* (R consecutive
-    leaf tiles sharing one (R, 8, G) slab DMA) are W-grouped per step,
-    with 4 ray-sub-band bits per leaf tile packed into one int32 word per
-    run — the direct input of ops/tile_contact.tile_run_counts.
-
-    Unlike the self-contact side, the (RT, T) hit-bit matrix is already
-    dense and row-major, so run words are one exact int32 weighted
-    reshape-sum and no sort is needed.
-
-    Returns ``(a_idx, run_idx, bm_words, nsteps, num_checks)``.
-    """
-    bits = _ray_tile_hits(rfields, tile_lo, tile_up, NB)   # (RT, T) bits
-    RT, T = bits.shape
-    G = rfields[0].shape[1]
-    TPW = 32 // NB
-    NW = R // TPW
-    NGT = -(-T // R)
-    if NGT * R - T:
-        bits = jnp.concatenate(
-            [bits, jnp.zeros((RT, NGT * R - T), jnp.int32)], axis=1)
-    wts = jnp.asarray([1 << (NB * j) for j in range(TPW)], jnp.int32)
-    words = (bits.reshape(RT, NGT, NW, TPW) *
-             wts[None, None, None, :]).sum(-1, dtype=jnp.int32)
-    # (RT, NGT, NW); int32 accumulation — the default would promote to
-    # int64 under x64 (tests) and wrap at the run_idx scatter
-    # f32: the product overflows int32 beyond ~2^31 tests (seen at 100k
-    # rays x 262k BVs); num_checks is a diagnostic count
-    num_checks = jnp.sum(
-        jax.lax.population_count(words)).astype(jnp.float32) * (
-            (G // NB) * G)
-
-    live = (words != 0).any(-1)
-    h = live.astype(jnp.int32)
-    q = jnp.cumsum(h, axis=1) - h                  # within-row exclusive pos
-    cnt = q[:, -1] + h[:, -1]                      # (RT,)
-    gcnt = (cnt + W - 1) // W                      # groups per ray tile
-    goff = jnp.cumsum(gcnt) - gcnt
-    nsteps = gcnt.sum()
-
-    rt_idx = jax.lax.broadcasted_iota(jnp.int32, (RT, NGT), 0)
-    g_idx = jax.lax.broadcasted_iota(jnp.int32, (RT, NGT), 1)
-    step = goff[:, None] + q // W
-    dst = jnp.where(live, step * W + q % W, S_cap * W)
-    run_idx = jnp.full((S_cap * W,), pad_run, jnp.int32).at[
-        dst.reshape(-1)].set(g_idx.reshape(-1), mode="drop")
-    bm_words = tuple(
-        jnp.zeros((S_cap * W,), jnp.int32).at[
-            dst.reshape(-1)].set(words[..., qw].reshape(-1), mode="drop")
-        for qw in range(NW))
-    a_dst = jnp.where(live, step, S_cap)
-    a_idx = jnp.zeros((S_cap,), jnp.int32).at[
-        a_dst.reshape(-1)].set(rt_idx.reshape(-1), mode="drop")
-    return a_idx, run_idx, bm_words, nsteps, num_checks
-
-
-@partial(jax.jit, static_argnames=("W", "S_cap"))
-def _phase1_ray_tile_groups(rfields, tile_lo, tile_up, W: int, S_cap: int):
-    """Grouped candidate extraction for the wide kernel: per ray tile, its
-    candidate leaf tiles are packed W per step.
-
-    Returns (a_idx (S_cap,), b_idx (S_cap, W), nsteps); b entries carry
-    ray-sub-band bits in their high 16 bits; pad entries point at the NaN
-    pad tile (index T) with band bits 0."""
-    bits = _ray_tile_hits(rfields, tile_lo, tile_up)
-    hits = bits > 0
-    RT, T = hits.shape
-    h = hits.astype(jnp.int32)
-    q = jnp.cumsum(h, axis=1) - h                  # within-row exclusive pos
-    cnt = q[:, -1] + h[:, -1]                      # (RT,)
-    gcnt = (cnt + W - 1) // W                      # groups per ray tile
-    goff = jnp.cumsum(gcnt) - gcnt
-    nsteps = gcnt.sum()
-
-    rt_idx = jax.lax.broadcasted_iota(jnp.int32, (RT, T), 0)
-    t_idx = jax.lax.broadcasted_iota(jnp.int32, (RT, T), 1)
-    step = goff[:, None] + q // W
-    dst = jnp.where(hits, step * W + q % W, S_cap * W)
-    b_flat = jnp.full((S_cap * W,), T, jnp.int32).at[
-        dst.reshape(-1)].set((t_idx | (bits << 16)).reshape(-1),
-                             mode="drop")
-    a_dst = jnp.where(hits, step, S_cap)
-    a_idx = jnp.zeros((S_cap,), jnp.int32).at[
-        a_dst.reshape(-1)].set(rt_idx.reshape(-1), mode="drop")
-    return a_idx, b_flat, nsteps
+    tmin = None
+    tmax = None
+    for k in range(3):
+        po = rfields[k].reshape(RT, NB, BH, 1)
+        inv = (1.0 / rfields[3 + k]).reshape(RT, NB, BH, 1)
+        t1 = (tile_lo[k][None, None, None, :] - po) * inv
+        t2 = (tile_up[k][None, None, None, :] - po) * inv
+        lo = min2(t1, t2)
+        hi = max2(t1, t2)
+        tmin = lo if tmin is None else max2(tmin, lo)
+        tmax = hi if tmax is None else min2(tmax, hi)
+    hit = jnp.any((tmin <= tmax) & (tmax >= 0), axis=2)       # (RT, NB, T)
+    wts = jnp.left_shift(1, jnp.arange(NB, dtype=jnp.int32))
+    return jnp.sum(jnp.where(hit, wts[None, :, None], 0), axis=1,
+                   dtype=jnp.int32)
 
 
 @partial(jax.jit, static_argnames=("capacity", "alg", "pair_capacity",
-                                   "narrow", "interpret"))
+                                   "narrow"))
 def traverse_rays_tiles_fixed(bvh: BVH, points, directions, capacity: int, *,
                               alg: "TileTraversal" = None,
                               pair_capacity: Optional[int] = None,
-                              narrow=None,
-                              interpret: Optional[bool] = None):
+                              narrow=None):
     """Fully-traced fixed-capacity tile ray traversal.
 
     ``points``/``directions`` are (3, N) ray matrices.  Returns
     ``(total, contacts, overflow, num_checks)`` with contacts as
     (leaf_user_index, iray) pairs (1-based ray indices); ``overflow``
-    signals a static capacity was exceeded and the
+    (bit 0: contact buffer, bit 1: candidate list) means the
     :func:`traverse_rays_tiles` wrapper must grow; ``num_checks`` counts
-    the ray-leaf intersection tests executed (live bands x band size)."""
-    from ..ops.tile_contact import tile_group_contacts
+    the ray-leaf tests of the live entries."""
     from ..raytrace import _prep_rays  # lazy: avoids an import cycle
 
-    # rays default to a deeper per-ray slot cap: a single ray can pass
-    # through several leaves of one tile in dense scenes (row = ray)
-    alg = alg or TileTraversal(row_cap=8, emit_w=8, decode_k=8)
-    G = alg.tile
-    if interpret is None:
-        interpret = _use_interpret()
-
+    alg = alg or TileTraversal()
+    G, NB = alg.tile, alg.bands
     p, d = _prep_rays(points, directions, bvh.leaves.volume.dtype)
     n_rays = p[0].shape[0]
-    fields, sphere, tile_lo, tile_up, _, _, T = _tiled_fields(bvh, G)
-    perm = _sort_rays(p, d)
-    rfields, RT = _ray_tile_fields(p, d, perm, G)
-    if T >= 1 << 16 or RT >= 1 << 16:
-        raise ValueError("tile count exceeds 65536; raise the tile size")
-
-    W = alg.count_w
+    RT = -(-n_rays // G)
     if pair_capacity is None:
-        # measured density: ~420 candidate leaf tiles per 128-ray block for
-        # fully random rays (growth wrapper covers heavier scenes)
-        pair_capacity = max(
-            ((RT * RAY_CANDS_PER_RAY_TILE + 8191) // 8192) * 8192, 8192)
-    from .tiles import (_merge_streams, _regroup_emit_runs, _step_caps,
-                        _finish_contacts)
-    mask_kind = "ray_sphere" if sphere else "ray_box"
+        pair_capacity = _ray_pair_capacity(RT, NB)
+    fields, sphere, rfields, perm, ea, eb, ne = _ray_entries(
+        bvh, p, d, G, NB, pair_capacity)
+    gi, gj, raw_total = _band_contacts(
+        rfields, fields, ea, eb, ne,
+        "ray_sphere" if sphere else "ray_box", NB, dedup=False,
+        capacity=capacity)
 
     # sorted ray position -> original 1-based ray index
     pad = RT * G - n_rays
     iray_map = perm.astype(jnp.int32) + 1
     if pad:
-        iray_map = jnp.concatenate(
-            [iray_map, jnp.zeros((pad,), jnp.int32)])
+        iray_map = jnp.concatenate([iray_map, jnp.zeros((pad,), jnp.int32)])
 
     narrow_fn = None
     if narrow is not None:
@@ -287,155 +154,35 @@ def traverse_rays_tiles_fixed(bvh: BVH, points, directions, capacity: int, *,
             dd = tuple(rflat[3 + k][gr] for k in range(3))
             return narrow(leaf, pp, dd)
 
-    use_two_phase = alg.pair_cap <= 128 and capacity % 1024 == 0
-    if use_two_phase:
-        # two-phase run-block path, mirroring tiles.traverse_tiles_fixed:
-        # run-block count kernel -> regroup of the hit-bearing pairs ->
-        # scalar-driven emit kernel streaming (ray, leaf) contacts dense
-        from ..ops.tile_contact import tile_group_emit, tile_run_counts
-        from .tiles import _run_chunk_cap
-        R = alg.run_r
-        NB = alg.bands
-        S_cap, CHUNK = _step_caps(pair_capacity // W + RT)
-        ch_cap = _run_chunk_cap(W, R, NB)
-        if CHUNK > ch_cap:
-            CHUNK = ch_cap
-            S_cap = -(-S_cap // CHUNK) * CHUNK
-        pad_run = (-(-T // R) * R) // R
-        a_idx, run_idx, bm_grp, nsteps, num_checks = _phase1_ray_runs(
-            rfields, tile_lo, tile_up, W, S_cap, R, pad_run, NB)
-        pair_overflow = nsteps > S_cap
-        DK = alg.decode_k
-        cnt_parts = []
-        for start in range(0, S_cap, CHUNK):
-            ns_c = jnp.clip(nsteps - start, 0, CHUNK)
-
-            def run_chunk(start=start, ns_c=ns_c):
-                return tile_run_counts(
-                    a_idx[start:start + CHUNK],
-                    run_idx[start * W:(start + CHUNK) * W],
-                    tuple(w[start * W:(start + CHUNK) * W]
-                          for w in bm_grp),
-                    ns_c.reshape(1).astype(jnp.int32), rfields, fields,
-                    mask_kind=mask_kind, G=G, W=W, R=R, NB=NB,
-                    dedup=False, interpret=interpret,
-                    with_colmax=not DK, moments=bool(DK))
-
-            dead = ((jnp.zeros((CHUNK * W * R,), jnp.int32),
-                     jnp.zeros((CHUNK * W * R,), jnp.int32),
-                     jnp.zeros((CHUNK * W * R, 128), jnp.int32))
-                    if DK else
-                    (jnp.zeros((CHUNK * W * R,), jnp.int32),
-                     jnp.zeros((CHUNK * W * R,), jnp.int32)))
-            cnt_parts.append(jax.lax.cond(ns_c > 0, run_chunk,
-                                          lambda d=dead: d))
-        # barrier: see tiles.py — XLA otherwise re-reads the count
-        # kernel's reused output buffer in one of the two consumers.
-        # Moment-word planes stay per-chunk (no ~GB concat copy).
-        barred = jax.lax.optimization_barrier(
-            tuple(jnp.concatenate([p[k] for p in cnt_parts])
-                  for k in range(2)) +
-            (tuple(p[2] for p in cnt_parts) if DK else ()))
-        counts, colmax = barred[0], barred[1]
-        words = barred[2:] if DK else None
-        slot_overflow = jnp.any(counts > alg.pair_cap)
-
-        W2 = alg.emit_w
-        # ray hit-bearing pairs carry far fewer hits each than self-contact
-        # pairs (1-3 vs ~8+): size the emit grid for the 1-hit-per-pair
-        # worst case instead of the self-contact density (capacity //
-        # (8 * W2) overflowed at 100k rays x 262k BVs).  Dead chunks skip
-        # via lax.cond, so the padding is near-free.  E2 (live runs with
-        # hits) measured 38k at capacity 2^18 (diag_rays.py): capacity//4
-        # carries ~1.7x headroom while halving the R-wide regroup
-        # expansion; overflow feeds the growth loop.
-        S2_cap, CHUNK2 = _step_caps(RT + capacity // W2)
-        E2_cap = max(4096, capacity // 4)
-        D_cap = min(max(8192, capacity // 2), E2_cap * R, 1 << 17) if DK else 0
-        regrouped = _regroup_emit_runs(
-            a_idx, run_idx, bm_grp, counts, W2, S2_cap, E2_cap, T, R, NB,
-            colmax=colmax, decode_k=DK, D_cap=D_cap)
-        a_idx2, b_idx2, nsteps2, over2 = regrouped[:4]
-        cap_overflow = (nsteps2 > S2_cap) | over2
-        parts = []
-        if DK:
-            from .tiles import _moment_decode
-            parts.append(_moment_decode(
-                words, *regrouped[4], G, DK, capacity))
-        for start in range(0, S2_cap, CHUNK2):
-            ns_c = jnp.clip(nsteps2 - start, 0, CHUNK2)
-
-            def emit_chunk(start=start, ns_c=ns_c):
-                return tile_group_emit(
-                    a_idx2[start:start + CHUNK2],
-                    b_idx2[start * W2:(start + CHUNK2) * W2],
-                    ns_c.reshape(1).astype(jnp.int32), rfields, fields,
-                    mask_kind=mask_kind, G=G, W=W2,
-                    ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
-                    dedup=False, CAP=capacity, interpret=interpret)
-
-            gi_c, gj_c, tot_c, flags_c = jax.lax.cond(
-                ns_c > 0, emit_chunk,
-                lambda: (jnp.zeros((capacity,), jnp.float32),
-                         jnp.zeros((capacity,), jnp.float32),
-                         jnp.zeros((), jnp.int32),
-                         jnp.zeros((), jnp.int32)))
-            parts.append((gi_c, gj_c, tot_c))
-            cap_overflow = cap_overflow | ((flags_c & 1) > 0)
-            slot_overflow = slot_overflow | ((flags_c & 2) > 0)
-        # barrier: the merge consumes each chunk's (gi, gj, total) through
-        # several chains (two gather operands + the prefix totals); without
-        # it XLA rematerializes the emit pipeline per chain — measured
-        # +110 ms at 100k rays (same lesson as the count-kernel barrier)
-        parts = jax.lax.optimization_barrier(parts)
-        # gi = sorted ray positions, gj = sorted leaf positions; contact
-        # columns are (leaf user index, 1-based ray index)
-        gi_pos, gj_pos, total = _merge_streams(parts, capacity)
-        total, contacts = _finish_contacts(
-            gj_pos, gi_pos, total, bvh.leaves.index, narrow_fn, capacity,
-            leaf_index_b=iray_map, sort_pairs=False)
-        overflow = (jnp.where(pair_overflow | cap_overflow
-                              | (total > capacity), 1, 0)
-                    | jnp.where(slot_overflow, 2, 0))
-        return total, contacts, overflow, num_checks
-
-    # pair-granularity fallback (large slot caps from the growth loop)
-    S_cap, CHUNK = _step_caps(pair_capacity // W + RT)
-    a_idx, b_idx, nsteps = _phase1_ray_tile_groups(
-        rfields, tile_lo, tile_up, W, S_cap)
-    pair_overflow = nsteps > S_cap
-
-    slot_parts, cnt_parts = [], []
-    slot_overflow = jnp.zeros((), jnp.bool_)
-    for start in range(0, S_cap, CHUNK):
-        ns_c = jnp.clip(nsteps - start, 0, CHUNK)
-        slots_c, cnt_c, ov_c = tile_group_contacts(
-            a_idx[start:start + CHUNK],
-            b_idx[start * W:(start + CHUNK) * W],
-            ns_c.reshape(1).astype(jnp.int32), rfields, fields,
-            mask_kind=mask_kind, G=G, W=W,
-            ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
-            dedup=False, interpret=interpret)
-        slot_parts.append(slots_c)   # gi = ray, gj = leaf sorted positions
-        cnt_parts.append(cnt_c)
-        slot_overflow = slot_overflow | ov_c
-    slots = jnp.concatenate(slot_parts, axis=0)
-    counts = jnp.concatenate(cnt_parts, axis=0)
-
-    # a-column = leaf user index (the kernel's gj section), b-column =
-    # original ray index (the gi section) — hence swap_sections
-    total, contacts = _extract_contacts(
-        slots, counts, bvh.leaves.index, narrow_fn, capacity,
-        leaf_index_b=iray_map, sort_pairs=False, swap_sections=True)
-    # bitmask: bit 0 = a buffer capacity (pair list / contact list) was
-    # exceeded (grow capacities), bit 1 = a kernel slot cap was exceeded
-    # (grow row_cap/pair_cap) — the wrappers grow only what overflowed
-    overflow = (jnp.where(pair_overflow | (total > capacity), 1, 0)
-                | jnp.where(slot_overflow, 2, 0))
-    from ..ops.tile_contact import N_BANDS
-    num_checks = jnp.sum(jax.lax.population_count(b_idx >> 16)
-                         ).astype(jnp.float32) * ((G // N_BANDS) * G)
+    # gi = sorted ray positions, gj = sorted leaf positions; contact
+    # columns are (leaf user index, 1-based ray index)
+    total, contacts = _finish_contacts(
+        gj, gi, raw_total, bvh.leaves.index, narrow_fn, capacity,
+        leaf_index_b=iray_map, sort_pairs=False)
+    overflow = _overflow_bits(raw_total > capacity, ne > pair_capacity)
+    num_checks = ne.astype(jnp.float32) * ((G // NB) * G)
     return total, contacts, overflow, num_checks
+
+
+def _ray_entries(bvh: BVH, p, d, G: int, NB: int, pair_capacity: int):
+    """Phase 1 of ray traversal: ``(fields, sphere, rfields, perm, ea, eb,
+    ne)`` — leaf tiles, coherence-sorted ray tiles and the live (ray band,
+    leaf tile) entry list."""
+    with jax.named_scope("tiles/phase1"):
+        fields, sphere, tile_lo, tile_up, _, _, T = _tiled_fields(bvh, G)
+        perm = _sort_rays(p, d)
+        rfields, RT = _ray_tile_fields(p, d, perm, G)
+        bits = _ray_tile_hits(rfields, tile_lo, tile_up, NB)   # (RT, T)
+        idx, ne = _compact_flat(_live_bands(bits, NB),
+                                jnp.arange(RT * T * NB, dtype=jnp.int32),
+                                pair_capacity)
+    return (fields, sphere, rfields, perm, (idx // (T * NB)) * NB + idx % NB,
+            (idx // NB) % T, ne)
+
+
+def _ray_pair_capacity(num_ray_tiles: int, bands: int) -> int:
+    cap = num_ray_tiles * RAY_ENTRIES_PER_RAY_TILE * bands // 4
+    return max(-(-cap // 8192) * 8192, 8192)
 
 
 def traverse_rays_tiles(bvh: BVH, points, directions, *,
@@ -444,46 +191,33 @@ def traverse_rays_tiles(bvh: BVH, points, directions, *,
                         options: BVHOptions = DEFAULT_OPTIONS
                         ) -> BVHTraversal:
     """Host wrapper with overflow-driven capacity growth (ray tiles)."""
-    from .tiles import _merge_cached_alg
-    alg = alg or TileTraversal(row_cap=8, emit_w=8, decode_k=8)
-    alg = _merge_cached_alg(alg, cache)
+    alg = alg or TileTraversal()
     idt = bvh.skips.dtype
     n_rays = int(jnp.asarray(points).shape[1])
     if n_rays == 0 or bvh.tree.real_nodes < 1:
         return BVHTraversal(num_contacts=jnp.zeros((), idt),
                             cache1=jnp.zeros((0, 2), idt),
                             cache2=jnp.zeros((0,), idt), start_level1=1)
-    if cache is not None and cache.cache1.ndim == 2 \
-            and cache.cache1.shape[0] > 0:
-        capacity = cache.cache1.shape[0]
-    else:
-        capacity = max(options.min_capacity, 4 * n_rays)
-        capacity = 1 << math.ceil(math.log2(capacity))
-    RT = -(-n_rays // alg.tile)
+    capacity = _initial_capacity(4 * n_rays, options, cache)
     if cache is not None and cache.pair_capacity > 0:
         pair_capacity = cache.pair_capacity
     else:
-        pair_capacity = max(
-            ((RT * RAY_CANDS_PER_RAY_TILE + 8191) // 8192) * 8192, 8192)
-    for _ in range(8):
-        total, contacts, overflow, num_checks = traverse_rays_tiles_fixed(
-            bvh, points, directions, capacity, alg=alg,
-            pair_capacity=pair_capacity, narrow=narrow)
-        ov = int(overflow)
-        if ov == 0:
-            return BVHTraversal(num_contacts=int(total), cache1=contacts,
-                                cache2=jnp.zeros((0,), idt), start_level1=1,
-                                num_checks=int(num_checks),
-                                pair_capacity=pair_capacity, tile_alg=alg)
-        if ov & 1:
-            from .tiles import _grow_capacity
-            capacity = _grow_capacity(capacity, options.capacity_growth)
-            pair_capacity = _grow_capacity(
-                pair_capacity, options.capacity_growth, 8192)
-        if ov & 2:
-            alg = _grow_alg(alg)
-    # density beyond the VMEM-bounded slot caps: fall back to the walk
-    from ..raytrace import traverse_rays
-    from .types import LVTTraversal
-    return traverse_rays(bvh, points, directions, LVTTraversal(),
-                         narrow=narrow, options=options)
+        pair_capacity = _ray_pair_capacity(-(-n_rays // alg.tile),
+                                           alg.bands)
+
+    def run(cap, pcap):
+        return traverse_rays_tiles_fixed(bvh, points, directions, cap,
+                                         alg=alg, pair_capacity=pcap,
+                                         narrow=narrow)
+
+    done = _grow_loop(run, capacity, pair_capacity, options)
+    if done is None:
+        from ..raytrace import traverse_rays
+        from .types import LVTTraversal
+        return traverse_rays(bvh, points, directions, LVTTraversal(),
+                             narrow=narrow, options=options)
+    total, contacts, num_checks, pair_capacity = done
+    return BVHTraversal(num_contacts=int(total), cache1=contacts,
+                        cache2=jnp.zeros((0,), idt), start_level1=1,
+                        num_checks=int(num_checks),
+                        pair_capacity=pair_capacity, tile_alg=alg)

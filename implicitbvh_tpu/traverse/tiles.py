@@ -1,24 +1,27 @@
-"""Tile traversal — the TPU-native broad-phase fast path.
+"""Tile traversal — the dense broad-phase engine for contact queries.
 
-A flat 2-level traversal scheme designed for the TPU execution model (dense
-vector ops, no random gathers, no atomics):
+A flat 2-level scheme in place of a tree walk:
 
-1. Morton-sorted leaves are grouped into tiles of ``G`` (default 128 — one
-   VPU lane row); tile AABBs come from a reshape-reduce.
-2. Dense tile-vs-tile AABB overlap (upper triangle) + compaction yields the
-   overlapping tile pair list.
-3. The Pallas kernel (ops/tile_contact.py) runs dense G x G leaf tests per
-   pair with in-VMEM compaction.
-4. Padded per-pair slots are compacted into the final contact list; user
-   indices are applied and pairs emitted as sorted (min, max) — identical
-   contact sets to LVT/BFS traversal.
+1. Morton-sorted leaves are grouped into tiles of ``G`` (default 128);
+   tile AABBs and per-band AABBs (``G // bands`` leaves each) come from
+   reshape-reductions.
+2. Phase 1: a dense supertile-vs-supertile AABB test (32 tiles per
+   supertile, upper triangle for self-contact) yields candidate supertile
+   pairs; for each, the band bits (ops/subtile.py) say which a-bands can
+   touch which b-tiles.  The live (a-band, b-tile) *entries* are
+   compacted with cumsum + scatter.
+3. Phase 2 (ops/tile_contact.py): a count pass tests every entry's
+   ``(G // bands, G)`` leaf block and keeps per-row contact counts; an
+   emit pass turns the counts into a dense stream of contact positions.
+4. User indices are applied and pairs emitted as sorted (min, max) for
+   self-contact or tree order for two BVHs — identical contact sets to
+   LVT/BFS traversal.
 
-This replaces the reference's tree traversal *for self-contact on TPU*: the
-implicit tree prunes more candidates, but its irregular walk is
-gather-bound, while the tile scheme trades ~10-20x more (vectorized,
-MXU/VPU-shaped) candidate tests for perfectly dense execution — the same
-trade the reference documents between BFS and LVT
-(ref src/traverse/traverse.jl:19-34), taken one step further.
+The implicit tree prunes more candidates than the tiles do, but its walk
+is a sequence of dependent gathers per leaf; the tile scheme trades more
+candidate tests for dense, independent work — the trade the reference
+documents between BFS and LVT (ref src/traverse/traverse.jl:19-34), taken
+one step further.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ import jax
 import jax.numpy as jnp
 
 from ..build import BVH
+from ..ops.subtile import SS, subtile_band_bits
+from ..ops.tile_contact import (band_emit, band_row_counts,
+                                band_row_counts_triton)
 from ..options import DEFAULT_OPTIONS, BVHOptions
 from ..volumes import BSphere
 from .types import BVHTraversal, TraversalAlgorithm
@@ -41,139 +47,54 @@ from .types import BVHTraversal, TraversalAlgorithm
 class TileTraversal(TraversalAlgorithm):
     """Dense-tile traversal parameters.
 
-    - ``tile``: leaves per tile (G); 128 matches the VPU lane width.
-    - ``row_cap``: max contacts of one leaf within one other tile.
-    - ``pair_cap``: max contacts within one tile pair.
-    - ``run_r``: aligned b-tile run length for the two-phase count kernel
-      (8, 16 or 32 — runs cannot span the 32-tile supertile).  Larger runs
-      trade fetched-but-dead tile bytes (overlappable DMA bandwidth) for
-      fewer b-slab DMA *issues*, the count kernel's measured bottleneck
-      (~130 ns of scalar-core time per copy): at 1M, live runs are
-      64.6k/45.3k/32.6k for R=8/16/32.
-    - ``count_w``: run slots per count-kernel grid step sharing one a-tile
-      DMA (8 or 16; 16 halves the step count at more leader-grouping pad
-      slack and 2x the per-step slab VMEM).
-    - ``emit_w``: b-tiles per emit-kernel grid step (shared a-tile DMA).
-    - ``bands``: sub-bands per tile for the banded broad phase (4, 8 or
-      16): the count kernel's mask quantum is (tile/bands, tile) — finer
-      bands cut dead mask work at the cost of more phase-1b compute and
-      band words (ops/subtile.py).
-    - ``decode_k``: > 0 enables the XLA moment-decode emit route: the
-      count kernel also captures per-column contact moments, and pairs
-      whose every column holds <= 2 contacts with <= decode_k live
-      columns are decoded in pure XLA (gather + top_k(decode_k) +
-      scatter, see _moment_decode) instead of re-masked by the emit
-      kernel.  Pays when most hit-bearing pairs are low-count (rays:
-      ~93%% carry cnt <= 3).
-    Overflows are detected and the host wrapper re-runs with doubled caps.
+    - ``tile``: leaves per tile (G).  A tile pair is the unit of the
+      broad phase; a smaller tile prunes more finely at the cost of a
+      larger phase 1.
+    - ``bands``: sub-bands per a-side tile (4, 8 or 16).  A live
+      (band, b-tile) entry costs ``(tile // bands) * tile`` leaf tests, so
+      finer bands cut dead tests at the cost of more entries.
+
+    There are no per-pair slot caps: the emit pass is exact at any contact
+    density.  Output and candidate-list capacities overflow into the host
+    wrapper's growth loop.
     """
 
     tile: int = 128
-    row_cap: int = 4
-    pair_cap: int = 32   # 16 overflows on 1M unit-density scenes (measured)
-    run_r: int = 8
-    count_w: int = 8
-    emit_w: int = 4
     bands: int = 4
-    decode_k: int = 0
 
 
-# Capacity heuristics, derived from densities measured on unit-density
-# random scenes (benchmarks/RESULTS.md): ~28-31 overlapping tiles per tile
-# and ~18 overlapping supertiles per supertile; the headroom absorbs scene
-# variation and the wrappers' growth loops cover the rest.
-PAIRS_PER_TILE = 36
+# Capacity heuristics, from the densities of unit-density random scenes
+# (1M soup: 47 live entries per tile; 100k random rays x 262k BVs: 845
+# per ray tile); the headroom absorbs scene variation and the wrappers'
+# growth loops cover the rest.
+ENTRIES_PER_TILE = 72            # live (band, b-tile) entries, at 4 bands
 SUPERPAIRS_PER_SUPERTILE = 24
-RAY_CANDS_PER_RAY_TILE = 448   # candidate leaf tiles per 128-ray tile
-# VMEM guards for the growth loop: the kernel's compaction scratch scales
-# with row_cap * G^2 (one-hot planes) and pair_cap * G, so unbounded 4x
-# growth could exceed the ~16 MB VMEM budget in two iterations.  Scenes so
-# dense that one tile pair exceeds these (> MAX_PAIR_CAP contacts within a
-# single 128x128-leaf block) fall back to the LVT walk in the wrappers.
-MAX_ROW_CAP = 32
-MAX_PAIR_CAP = 1024
+RAY_ENTRIES_PER_RAY_TILE = 1280  # live (ray band, leaf tile) entries
+ENTRY_CHUNK = 1 << 16            # entries per step of the plain count pass
+
+# The count pass each backend runs: the Triton kernel where it measured
+# faster end to end (PERF.md, "Kernels"), the plain pass elsewhere.
+COUNT_PASS = {"gpu": "triton"}
 
 
-def _pair_capacity_for(num_tiles: int) -> int:
-    return max(((num_tiles * PAIRS_PER_TILE + 8191) // 8192) * 8192, 8192)
+def _pair_capacity_for(num_tiles: int, bands: int = 4) -> int:
+    """Static capacity of the candidate entry list."""
+    cap = num_tiles * ENTRIES_PER_TILE * bands // 4
+    return max(-(-cap // 8192) * 8192, 8192)
 
 
-def _step_caps(need: int):
-    """(S_cap, CHUNK) for the grouped kernel's step grid.
-
-    Steps are chunked so the prefetched index arrays fit in SMEM (1 MB);
-    small scenes get a right-sized single chunk instead of padding to the
-    16384-step SMEM ceiling (padded steps still cost a grid iteration each
-    — at 65k leaves the old fixed floor wasted ~90% of the grid).
-    """
-    CH_MAX = 1 << 14
-    if need <= CH_MAX:
-        s = max(256, -(-need // 256) * 256)
-        return s, s
-    return -(-need // CH_MAX) * CH_MAX, CH_MAX
-
-
-def _run_chunk_cap(W: int, R: int, NB: int) -> int:
-    """Step-chunk ceiling for the two-phase run path: each chunk prefetches
-    a_idx (CHUNK,), run_idx (CHUNK * W,) and ``R * NB // 32`` band-word
-    arrays (CHUNK * W,) into SMEM (1 MB total budget, shared with the
-    emit pass's arrays)."""
-    NW = (R * NB) // 32
-    words = 1 + W * (1 + NW)
-    cap = 700_000 // (4 * words)
-    return min(1 << 13, 1 << (cap.bit_length() - 1))
-
-
-def _fold_sub4(sub_lo, sub_up):
-    """Fold (T, NB) sub-band bounds to the 4-band form used by the
-    pair-granularity fallback kernels (their payload packing carries the
-    band bits through the f32-exact compactor, which caps them at 4)."""
-    NB = sub_lo[0].shape[1]
-    if NB == 4:
-        return sub_lo, sub_up
-    g = NB // 4
-    T = sub_lo[0].shape[0]
-    lo = tuple(c.reshape(T, 4, g).min(2) for c in sub_lo)
-    up = tuple(c.reshape(T, 4, g).max(2) for c in sub_up)
-    return lo, up
-
-
-def _grow_capacity(capacity: int, growth: float, quantum: int = 1024) -> int:
-    """Scale a buffer capacity by ``BVHOptions.capacity_growth``, keeping
-    the engines' alignment invariants: small capacities stay powers of two
-    (the pair-granularity path), larger ones round up to ``quantum`` (the
-    two-phase emit stream requires capacity % 1024 == 0).  Always grows."""
+def _grow_capacity(capacity: int, growth: float) -> int:
+    """Scale a buffer capacity by ``BVHOptions.capacity_growth``: small
+    capacities stay powers of two, larger ones round up to 1024 (fewer
+    distinct compiled shapes).  Always grows."""
     new = max(int(capacity * growth), capacity + 1)
     if new <= 1024:
         return 1 << math.ceil(math.log2(new))
-    return -(-new // quantum) * quantum
+    return -(-new // 1024) * 1024
 
 
-def _grow_alg(alg: "TileTraversal") -> "TileTraversal":
-    """4x slot-cap growth under the VMEM ceilings."""
-    return dataclasses.replace(
-        alg,
-        row_cap=min(4 * alg.row_cap, MAX_ROW_CAP),
-        pair_cap=min(4 * alg.pair_cap, MAX_PAIR_CAP))
-
-
-def _use_interpret() -> bool:
-    return jax.default_backend() == "cpu"
-
-
-def _merge_cached_alg(alg: "TileTraversal", cache) -> "TileTraversal":
-    """Adopt the cache's (possibly growth-enlarged) slot caps so a repeat
-    traversal hits the compiled program instead of re-growing."""
-    prev = getattr(cache, "tile_alg", None) if cache is not None else None
-    if isinstance(prev, TileTraversal) and prev.tile == alg.tile:
-        return dataclasses.replace(
-            alg,
-            row_cap=max(alg.row_cap, prev.row_cap),
-            pair_cap=max(alg.pair_cap, prev.pair_cap))
-    return alg
-
-
-def _overlap(alo, aup, blo, bup, bc=lambda x: x[:, None], br=lambda x: x[None, :]):
+def _overlap(alo, aup, blo, bup, bc=lambda x: x[:, None],
+             br=lambda x: x[None, :]):
     ov = (bc(aup[0]) >= br(blo[0])) & (bc(alo[0]) <= br(bup[0]))
     ov &= (bc(aup[1]) >= br(blo[1])) & (bc(alo[1]) <= br(bup[1]))
     ov &= (bc(aup[2]) >= br(blo[2])) & (bc(alo[2]) <= br(bup[2]))
@@ -183,593 +104,114 @@ def _overlap(alo, aup, blo, bup, bc=lambda x: x[:, None], br=lambda x: x[None, :
 def _compact_flat(flat, values, cap, pad=0):
     """cumsum+scatter compaction of ``values`` where ``flat``; (out, count)."""
     v = flat.astype(jnp.int32)
-    pos = jnp.cumsum(v) - v
+    pos = jnp.cumsum(v, dtype=jnp.int32) - v
     posx = jnp.where(flat, pos, cap)
     out = jnp.full((cap,), pad, values.dtype).at[posx].set(values,
                                                            mode="drop")
-    return out, v.sum()
+    return out, jnp.sum(v, dtype=jnp.int32)
 
 
-def _phase1_superpairs(tile_lo, tile_up, P_cap: int, sp_round: int = 16):
-    """Level A of phase 1: dense supertile-vs-supertile AABB overlap
-    (upper triangle) compacted to a packed superpair list.
-
-    Cheap (S = T/32 supertiles -> an S x S matrix) and shared by the
-    single-chip phase-1 variants and the multi-chip path, which shards the
-    *superpair list* across devices (``sp_round`` rounds SP_cap up so it
-    splits evenly).  Returns ``(si, sj, nsp, overflow)``.
-    """
+def _supertile_bounds(tile_lo, tile_up):
+    """(S,) supertile AABBs of SS consecutive tiles (pad tiles never
+    overlap anything)."""
     T = tile_lo[0].shape[0]
-    SS = 32
     S = -(-T // SS)
     pad = S * SS - T
 
     def padt(a, fill):
         if pad:
             a = jnp.concatenate([a, jnp.full((pad,), fill, a.dtype)])
-        return a
+        return a.reshape(S, SS)
 
-    tl = tuple(padt(c, jnp.inf) for c in tile_lo)
-    tu = tuple(padt(c, -jnp.inf) for c in tile_up)
-    sup_lo = tuple(c.reshape(S, SS).min(1) for c in tl)
-    sup_up = tuple(c.reshape(S, SS).max(1) for c in tu)
+    return (tuple(padt(c, jnp.inf).min(1) for c in tile_lo),
+            tuple(padt(c, -jnp.inf).max(1) for c in tile_up), S)
 
-    ovA = _overlap(sup_lo, sup_up, sup_lo, sup_up)
+
+def _superpair_cap(S1: int, S2: int, P_cap: int, sp_round: int) -> int:
+    # scale with P_cap so the wrapper's growth loop also grows this level
+    cap = max(S1 * SUPERPAIRS_PER_SUPERTILE, S2 * SUPERPAIRS_PER_SUPERTILE,
+              64, P_cap // 128)
+    return -(-cap // sp_round) * sp_round
+
+
+def _phase1_superpairs(tile_lo, tile_up, P_cap: int, sp_round: int = 16):
+    """Level A of phase 1: dense supertile-vs-supertile AABB overlap
+    (upper triangle) compacted to a superpair list.
+
+    Shared by the single-device engine and the multi-device path, which
+    deals the *superpair list* out to the devices (``sp_round`` rounds the
+    list's capacity up so it splits evenly).  Returns
+    ``(si, sj, nsp, overflow)``.
+    """
+    slo, sup, S = _supertile_bounds(tile_lo, tile_up)
+    ovA = _overlap(slo, sup, slo, sup)
     ovA &= jax.lax.broadcasted_iota(jnp.int32, (S, S), 0) <= \
         jax.lax.broadcasted_iota(jnp.int32, (S, S), 1)
-    # scale with P_cap so the wrapper's growth loop also grows this level
-    SP_cap = max(S * SUPERPAIRS_PER_SUPERTILE, 64, P_cap // 64)
-    SP_cap = -(-SP_cap // sp_round) * sp_round
+    SP_cap = _superpair_cap(S, S, P_cap, sp_round)
     kA = jnp.arange(S * S, dtype=jnp.int32)
     spacked, nsp = _compact_flat(ovA.reshape(-1), kA, SP_cap)
     return spacked // S, spacked % S, nsp, nsp > SP_cap
 
 
-@partial(jax.jit, static_argnames=("G", "P_cap", "interpret"))
-def _phase1_tile_pairs(tile_lo, tile_up, sub_lo, sub_up, G: int, P_cap: int,
-                       interpret: Optional[bool] = None):
-    """Hierarchical tile-pair extraction -> packed (ti << 16 | tj) pairs
-    plus per-pair a-sub-band liveness bits.
-
-    A flat T x T overlap matrix would make the compaction the dominant cost
-    at large N, so tiles are grouped into supertiles of SS=32: a dense
-    S x S pass extracts overlapping supertile pairs, then only those pairs
-    expand to 32 x 32 tile tests.  TPU specifics (measured at 1M leaves):
-
-    - level B runs as a Pallas kernel (ops/subtile.py): the supertile rows
-      arrive as scalar-prefetch-indexed block DMAs instead of XLA row
-      gathers (12 gathers of (SP_cap, 32) rows measured 6.7 ms), and the
-      kernel emits N_BANDS sub-band bits per tile pair — ``bits > 0`` is a
-      strictly tighter pair filter than the tile-vs-tile AABB test, and
-      the contact kernel uses the bits to skip whole mask bands;
-    - the 6.3M-element survivor compaction runs in the Pallas stream
-      compactor (ops/compaction.py) instead of XLA cumsum+scatter, with
-      (ti, tj | bits << 16) as two payloads so the values stay f32-exact
-      (< 2^24; T < 2^16 is enforced by the callers).
-      The compactor's kernel cost scales with its per-mega-tile cap, and
-      survivor densities have a ~3.3x max/mean ratio in every mega-tile
-      layout tried, so the cap (see cap_c below) is sized 1.3x over the
-      worst measured density — NOT at the mean (a too-small cap overflows
-      and, beyond the flagged overflow, costs a growth re-run).
-
-    Returns ``(packed, band, npairs)``: pair list, per-pair band bits, and
-    the valid count (> P_cap signals overflow).
-    """
-    if interpret is None:
-        interpret = _use_interpret()
-    sub_lo, sub_up = _fold_sub4(sub_lo, sub_up)
-    T = tile_lo[0].shape[0]
-    SS = 32
-    # level A: supertile pairs (SP_cap a multiple of 16 keeps the level-B
-    # mask mega-tile aligned)
-    si, sj, nsp, sp_overflow = _phase1_superpairs(tile_lo, tile_up, P_cap)
-    SP_cap = si.shape[0]
-
-    # level B (phase 1b): per-pair sub-band bits from the Pallas kernel;
-    # triangle (tii <= tjj) and tii/tjj < T validity applied in-kernel
-    from ..ops.subtile import subtile_band_bits
-    bits = subtile_band_bits(
-        sub_lo, sub_up, tile_lo, tile_up, si, sj,
-        nsp.reshape(1).astype(jnp.int32), Ta=T, Tb=T, triangle=True,
-        interpret=interpret)                     # (SP_cap, SS, 128)
-    bits = bits[:, :, :SS]
-
-    # Compact with the superpair axis MINOR: survivors cluster on dense
-    # (e.g. diagonal) superpairs, so (SP, SS, SS)-major mega-tiles overflow
-    # the compactor's per-tile cap; transposed, every 16384-element
-    # mega-tile mixes all superpairs and densities stay near the mean.
-    # The bits transpose is a 6.3M-elem relayout (cheap); the payload iotas
-    # are rebuilt directly in the transposed layout.
-    bits_t = jnp.transpose(bits, (1, 2, 0))      # (SS_i, SS_j, SP_cap)
-    ovB_t = (bits_t > 0).reshape(-1)
-    k_i = jax.lax.broadcasted_iota(jnp.int32, (SS, SS, SP_cap), 0)
-    k_j = jax.lax.broadcasted_iota(jnp.int32, (SS, SS, SP_cap), 1)
-    tii_t = (si * SS)[None, None, :] + k_i
-    tjj_t = ((sj * SS)[None, None, :] + k_j) | (bits_t << 16)
-
-    from ..ops.compaction import finish_compact, tile_compact
-    # per-mega-tile survivor cap: measured max densities at 1M are
-    # 1391 (bench scene) and 1970 (mixed-radius particles) per 16384-slot
-    # mega-tile, vs a ~600 mean — 2x headroom over the worst observed;
-    # scales with P_cap so the growth loop raises it on overflow
-    cap_c = max(2048, P_cap // 116)
-    slots, counts, c_over = tile_compact(
-        ovB_t, (tii_t.reshape(-1), tjj_t.reshape(-1)),
-        cap=cap_c, row_cap=128, interpret=interpret)
-    (out_ti, out_tjb), npairs = finish_compact(slots, counts, P_cap)
-    packed = (out_ti << 16) | (out_tjb & 0xFFFF)
-    band = out_tjb >> 16
-    npairs = jnp.where(sp_overflow | c_over, P_cap + 1, npairs)
-    return packed, band, npairs
+def _phase1_cross_superpairs(tlo1, tup1, tlo2, tup2, P_cap: int,
+                             sp_round: int = 16):
+    """Two-BVH level A: the full S1 x S2 supertile grid, no triangle (the
+    reference's pair-traversal semantics, ref traverse_pair_cpu.jl:615-645).
+    Returns ``(si, sj, nsp, overflow)``."""
+    slo1, sup1, S1 = _supertile_bounds(tlo1, tup1)
+    slo2, sup2, S2 = _supertile_bounds(tlo2, tup2)
+    ovA = _overlap(slo1, sup1, slo2, sup2)
+    SP_cap = _superpair_cap(S1, S2, P_cap, sp_round)
+    kA = jnp.arange(S1 * S2, dtype=jnp.int32)
+    spacked, nsp = _compact_flat(ovA.reshape(-1), kA, SP_cap)
+    return spacked // S2, spacked % S2, nsp, nsp > SP_cap
 
 
-@partial(jax.jit, static_argnames=("W", "S_cap", "T_pad"))
-def _group_pairs(packed, band, npairs, W: int, S_cap: int, T_pad: int):
-    """Regroup a packed (ti << 16 | tj) pair list for the grouped wide
-    kernel (ops/tile_contact.tile_group_contacts): sort by (ti, tj) and pack
-    each ti's tj-list W per step, so the kernel fetches the shared a-tile
-    once per step instead of once per pair (the per-pair kernel is
-    DMA-issue-bound).  ``band`` (per-pair sub-band bits from phase 1b)
-    rides along the sort and lands in the b entries' high 16 bits.
-
-    Returns ``(a_idx (S_cap,), b_idx (S_cap * W,), nsteps)``; pad b entries
-    point at the NaN pad tile (index ``T_pad``) with band bits 0, so the
-    kernel skips them without touching their data.
-    """
-    P_cap = packed.shape[0]
-    lane = jnp.arange(P_cap, dtype=jnp.int32)
-    valid = lane < npairs
-    # sort as uint32 so (a) ti >= 32768 (negative int32) keeps its order and
-    # (b) the -1 padding sorts last
-    pk_u = jax.lax.bitcast_convert_type(
-        jnp.where(valid, packed, -1), jnp.uint32)
-    pk_s, band_s = jax.lax.sort((pk_u, band), num_keys=1)
-    pk = jax.lax.bitcast_convert_type(pk_s, jnp.int32)
-    ti = (pk >> 16) & 0xFFFF
-    tj = pk & 0xFFFF
-    prev_ti = jnp.concatenate([jnp.full((1,), -1, jnp.int32), ti[:-1]])
-    is_start = (ti != prev_ti) & valid
-    start = jax.lax.cummax(jnp.where(is_start, lane, -1))
-    pos = lane - start                       # position within my ti-run
-    is_leader = ((pos % W) == 0) & valid     # first pair of each W-group
-    lead_cum = jnp.cumsum(is_leader.astype(jnp.int32))
-    gid = lead_cum - 1                       # W-group id of every pair
-    nsteps = lead_cum[-1]
-    a_dst = jnp.where(is_leader, gid, S_cap)
-    a_idx = jnp.zeros((S_cap,), jnp.int32).at[a_dst].set(ti, mode="drop")
-    b_dst = jnp.where(valid, gid * W + pos % W, S_cap * W)
-    b_idx = jnp.full((S_cap * W,), T_pad, jnp.int32
-                     ).at[b_dst].set(tj | (band_s << 16), mode="drop")
-    return a_idx, b_idx, nsteps
+def _live_bands(bits, NB: int):
+    """Flat liveness of every (element of ``bits``, band) pair."""
+    r = jnp.arange(NB, dtype=jnp.int32)
+    return ((bits[..., None] >> r) & 1).reshape(-1) != 0
 
 
-def _leader_group(ti_flat, valid, payloads, pads, W: int, S_cap: int):
-    """Shared W-per-a-tile leader grouping: pack the valid entries of a
-    (ti-sorted) flat list W per step so a grouped kernel fetches each
-    a-tile block once per step.  ``payloads`` is a tuple of per-entry value
-    arrays scattered into the same (S_cap * W,) slot layout (``pads`` are
-    their pad-slot fill values).
-
-    Returns ``(a_idx (S_cap,), grouped payload tuple, nsteps)``.
-    """
-    Nf = ti_flat.shape[0]
-    v = valid.astype(jnp.int32)
-    cv_ex = jnp.cumsum(v) - v
-    prev_ti = jnp.concatenate([jnp.full((1,), -1, jnp.int32), ti_flat[:-1]])
-    is_run_start = ti_flat != prev_ti
-    run_base = jax.lax.cummax(jnp.where(is_run_start, cv_ex, -1))
-    posr = cv_ex - run_base              # rank among the run's valid entries
-    is_leader = valid & (posr % W == 0)
-    lead_cum = jnp.cumsum(is_leader.astype(jnp.int32))
-    gid = lead_cum - 1
-    nsteps = lead_cum[-1]
-    a_dst = jnp.where(is_leader, gid, S_cap)
-    a_idx = jnp.zeros((S_cap,), jnp.int32).at[a_dst].set(
-        ti_flat, mode="drop")
-    b_dst = jnp.where(valid, gid * W + posr % W, S_cap * W)
-    grouped = tuple(
-        jnp.full((S_cap * W,), pad, jnp.int32).at[b_dst].set(p, mode="drop")
-        for p, pad in zip(payloads, pads))
-    return a_idx, grouped, nsteps
+def _entries_from_bits(bits, si, sj, NB: int, cap: int):
+    """Compact the live bands of (SP_cap, SS, SS) superpair band bits into
+    ``(ea, eb, ne)``: a-band row (``ti * NB + band``), b-tile and the live
+    count (> cap signals overflow)."""
+    idx, ne = _compact_flat(_live_bands(bits, NB),
+                            jnp.arange(bits.size * NB, dtype=jnp.int32), cap)
+    per_sp = SS * SS * NB
+    p = idx // per_sp
+    rem = idx % per_sp
+    ti = si[p] * SS + rem // (SS * NB)
+    tj = sj[p] * SS + (rem // NB) % SS
+    return ti * NB + rem % NB, tj, ne
 
 
-@partial(jax.jit, static_argnames=("G", "P_cap", "W", "S_cap", "R",
-                                   "pad_run", "NB", "interpret"))
-def _phase1_tile_runs(tile_lo, tile_up, sub_lo, sub_up, G: int, P_cap: int,
-                      W: int, S_cap: int, R: int, pad_run: int, NB: int = 4,
-                      interpret: Optional[bool] = None):
-    """Phase 1 fused to *run* granularity for the run-block count kernel:
-    level-A supertile pairs -> subtile band bits -> per-run band words ->
-    sorted, W-grouped (a_idx, run_idx, bm_words) — the direct input of
-    ops/tile_contact.tile_run_counts.
-
-    Compared to `_phase1_tile_pairs` + `_group_runs` this skips the pair
-    list entirely: the (SP_cap, SS, SS) bit tensor is word-packed 8 tiles
-    -> one int32 per aligned run *in its native layout* (an exact int32
-    weighted lane-group sum — no 6.3M transpose), which shrinks the
-    compaction input 8x (790k at 1M, 66k live).  At that size plain XLA
-    cumsum+scatter compaction costs ~2 ms — the Pallas stream compactor
-    (measured ~18 ms on the 6.3M pair tensor, cost ~ cap x iterations) is
-    no longer needed here.
-
-    Returns ``(a_idx, run_idx, bm_grp, nsteps, num_checks, overflow)``.
-    """
-    if interpret is None:
-        interpret = _use_interpret()
-    assert R in (8, 16, 32) and G % NB == 0
-    T = tile_lo[0].shape[0]
-    SS = 32
-    si, sj, nsp, overflow = _phase1_superpairs(tile_lo, tile_up, P_cap)
-    SP_cap = si.shape[0]
-
-    from ..ops.subtile import subtile_band_bits
-    bits = subtile_band_bits(
-        sub_lo, sub_up, tile_lo, tile_up, si, sj,
-        jnp.minimum(nsp, SP_cap).reshape(1).astype(jnp.int32),
-        Ta=T, Tb=T, triangle=True, n_bands=NB,
-        interpret=interpret)[:, :, :SS]
-
-    a_idx, run_idx, bm_grp, nsteps, num_checks, ov2 = _runs_from_bits(
-        bits, si, sj, SS, G, W, S_cap, R, pad_run, NB)
-    return a_idx, run_idx, bm_grp, nsteps, num_checks, overflow | ov2
-
-
-def _runs_from_bits(bits, si, sj, SS: int, G: int, W: int, S_cap: int,
-                    R: int, pad_run: int, NB: int = 4):
-    """Shared phase-1 tail: (SP_cap, SS, SS) band bits -> sorted,
-    W-grouped aligned-run lists for the run-block count kernel.
-
-    Per-run band bits pack ``32 // NB`` tiles per int32 word
-    (``R * NB // 32`` word arrays per run) via exact int32 weighted
-    lane-group sums in the bits' native layout (no transpose); at this
-    size (SP_cap * SS * SS / R elements) plain XLA cumsum+scatter
-    compaction beats the Pallas stream compactor.  (For NB = 16 the
-    second tile's bits land in the sign half of the word — int32 wrapping
-    multiplication produces the intended bit pattern, and every consumer
-    is bitwise.)
-
-    Returns ``(a_idx, run_idx, bm_grp tuple, nsteps, num_checks,
-    overflow)``.
-    """
-    SP_cap = bits.shape[0]
-    NG = SS // R
-    TPW = 32 // NB
-    NW = R // TPW
-    wts = jnp.asarray([1 << (NB * j) for j in range(TPW)], jnp.int32)
-    # (SP_cap, SS, NG, NW): word q of run g covers tiles [q*TPW, +TPW)
-    words = (bits.reshape(SP_cap, SS, NG, NW, TPW) *
-             wts[None, None, None, None, :]).sum(-1, dtype=jnp.int32)
-    # f32: the product overflows int32 beyond ~2^31 tests (seen at 100k
-    # rays x 262k BVs); num_checks is a diagnostic count, f32 rounding
-    # (24-bit mantissa) is immaterial
-    num_checks = jnp.sum(
-        jax.lax.population_count(words)).astype(jnp.float32) * (
-            (G // NB) * G)
-
-    # run key (unique: a (ti, tj) pair lives in exactly one superpair):
-    # ti(16b) << 13 | run; run = tj >> log2(R) < 8192 for T < 2^16
-    i_io = jax.lax.broadcasted_iota(jnp.int32, (SP_cap, SS, NG), 1)
-    g_io = jax.lax.broadcasted_iota(jnp.int32, (SP_cap, SS, NG), 2)
-    ti_t = si[:, None, None] * SS + i_io
-    run_t = sj[:, None, None] * NG + g_io
-    key = (ti_t << 13) | run_t
-
-    wflat = [words[..., q].reshape(-1) for q in range(NW)]
-    live = wflat[0] != 0
-    for q in range(1, NW):
-        live = live | (wflat[q] != 0)
-    # the run cap is much tighter than the grouped layout's S_cap * W
-    # slots: live runs measure ~17% of the grouped capacity at 1M (66k vs
-    # 393k), so a 1/4 cap still carries ~1.5x headroom while the
-    # leader-grouping scans shrink 4x; overflow feeds the growth loop
-    # like every other capacity
-    run_cap = max(min(S_cap * W, 16384), S_cap * W // 4)
-    # the sorted-slice below can't exceed the flat run-slot count (small
-    # scenes with large R can have fewer slots than the cap)
-    run_cap = min(run_cap, live.shape[0])
-    nruns = jnp.sum(live.astype(jnp.int32))
-    overflow = nruns > run_cap
-
-    # ONE full-size sort replaces cumsum+scatter compaction + a second
-    # sort of the compacted list: dead runs get key -1, which sorts last
-    # as uint32, so the first run_cap slots of the sorted list ARE the
-    # compacted (ti, run)-ordered run list.  On-chip the variadic sort at
-    # this size (~790k x (1 + NW) arrays at 1M) is ~4x cheaper than the
-    # 1 + NW scatter compactions it replaces (8.3 -> ~2 ms measured).
-    key_u = jax.lax.bitcast_convert_type(
-        jnp.where(live, key.reshape(-1), -1), jnp.uint32)
-    sorted_ops = jax.lax.sort((key_u, *wflat), num_keys=1)
-    key_i = jax.lax.bitcast_convert_type(
-        sorted_ops[0][:run_cap], jnp.int32)
-    words_s = tuple(w[:run_cap] for w in sorted_ops[1:])
-    ti_r = (key_i >> 13) & 0xFFFF
-    run_r = key_i & 0x1FFF
-    rvalid = jnp.arange(run_cap, dtype=jnp.int32) < nruns
-    a_idx, grouped, nsteps = _leader_group(
-        ti_r, rvalid, (run_r, *words_s), (pad_run,) + (0,) * NW, W, S_cap)
-    run_idx = grouped[0]
-    bm_grp = tuple(grouped[1:])
-    overflow |= nsteps > S_cap
-    return a_idx, run_idx, bm_grp, nsteps, num_checks, overflow
-
-
-@partial(jax.jit, static_argnames=("W2", "S2_cap", "E2_cap", "T_pad",
-                                   "R", "NB", "decode_k", "D_cap"))
-def _regroup_emit_runs(a_idx, run_idx, bm_words, counts, W2: int,
-                       S2_cap: int, E2_cap: int, T_pad: int, R: int,
-                       NB: int = 4, colmax=None, decode_k: int = 0,
-                       D_cap: int = 0):
-    """Regroup the (tile) pairs with nonzero counts for the emit kernel
-    (payload ``tj | band << 16 | cnt << 20``, exactly like _regroup_emit).
-
-    ``counts`` is tile_run_counts' (S_cap * W * R,) output in (step, w, t)
-    order — almost entirely dead (only ~7%% of candidate *pairs* have
-    contacts, and the step grid itself is padded), so working on the flat
-    expansion directly costs ~30 ms at 1M in scans/scatters.  Two-level
-    scheme instead: (1) compact the *run slots* with any live tile
-    (<= live pairs <= capacity) into an (E2_cap,) slot list — the only
-    full-width pass is ONE single-operand sort of the slot keys;
-    (2) gather those runs' metadata and counts at the compacted slots and
-    expand them R-wide (E2_cap * R entries) for the leader grouping.
-
-    ``decode_k > 0`` splits off the pairs the XLA moment decode can
-    finish without the emit kernel (colmax <= 2 and cnt <= decode_k,
-    requires ``colmax``): those are compacted into (D_cap,) arrays
-    ``(dec_pk = ti << 16 | tj, dec_flat = raw word-plane row index,
-    dec_cnt)`` and removed from the emit grouping, and the return gains a
-    trailing ``(dec_pk, dec_flat, dec_cnt, ndec)`` tuple.  Decode pairs
-    beyond D_cap spill back to the emit kernel (correct either way).
-
-    Returns ``(a_idx2, b_idx2, nsteps2, over2[, dec])`` (``over2``: more
-    live runs than E2_cap — grow ``capacity``).
-    """
-    SW = run_idx.shape[0]
-    Win = SW // a_idx.shape[0]
-    if not isinstance(bm_words, (tuple, list)):
-        bm_words = (bm_words,)
-    rc = counts.reshape(SW, R)
-    run_live = rc.max(axis=1) > 0
-    nlive = jnp.sum(run_live.astype(jnp.int32))
-    E2c = min(E2_cap, SW)
-    over2 = nlive > E2c
-    # ONE-operand sort-slice compaction: dead runs get key -1 (sorts
-    # last as uint32), live runs keep their slot index, so the first E2c
-    # sorted keys ARE the compacted live-run slot list in slot
-    # (= ti-sorted) order — and the key IS the original slot index, so
-    # every payload (ti, run base, band words, count rows, colmax flags)
-    # is GATHERED at slot_r after the sort instead of riding it as extra
-    # variadic operands.  The ride cost scaled with operands x SW
-    # (6 full-width arrays at ray scale, ~0.4e9 elem/s); the E2c-sized
-    # replacement gathers are independent and overlap to ~one gather.
-    slot = jnp.arange(SW, dtype=jnp.int32)
-    key_u = jax.lax.bitcast_convert_type(
-        jnp.where(run_live, slot, -1), jnp.uint32)
-    key_s = jax.lax.sort(key_u)
-    slot_r = jax.lax.bitcast_convert_type(key_s[:E2c], jnp.int32)
-    slot_c = jnp.maximum(slot_r, 0)     # dead tail -> any in-range row
-    ti_r = a_idx[slot_c // Win]
-    base_r = run_idx[slot_c] & 0xFFFF
-    words_r = [w[slot_c] for w in bm_words]
-    # counts clamp to the payload's 8-bit field; (E2c, R) row gather
-    rc_r = jnp.minimum(rc[slot_c], 255)
-    # colmax <= 2 flags become payload bit 28 (the emit kernel's
-    # column-moment route)
-    ok_r = ((colmax.reshape(SW, R)[slot_c] <= 2).astype(jnp.int32)
-            if colmax is not None else None)
-    # expand R-wide
-    E = E2c * R
-    ti_flat = jnp.repeat(ti_r, R)
-    t = jnp.arange(E, dtype=jnp.int32) % R
-    TPW = 32 // NB
-    wsel = jnp.repeat(words_r[0], R)
-    for q in range(1, len(words_r)):
-        wsel = jnp.where(t // TPW == q, jnp.repeat(words_r[q], R), wsel)
-    bits_nb = (wsel >> (NB * (t % TPW))) & ((1 << NB) - 1)
-    # fold the NB fine bands to the emit kernel's 4 coarse (G/4-row)
-    # bands: coarse band c is live iff any of its NB // 4 fine bands is
-    gsz = NB // 4
-    if gsz == 1:
-        band4 = bits_nb
-    else:
-        band4 = jnp.zeros_like(bits_nb)
-        for c in range(4):
-            live_c = ((bits_nb >> (c * gsz)) & ((1 << gsz) - 1)) != 0
-            band4 = band4 | (live_c.astype(jnp.int32) << c)
-    tj = jnp.repeat(base_r, R) * R + t
-    cnt = rc_r.reshape(-1)              # (E2c * R,) in (slot, t) order
-    el = jnp.arange(E, dtype=jnp.int32)
-    valid = (cnt > 0) & (el < nlive * R)
-    # dead entries never reach the kernel, but clamp their tj to the pad
-    # tile so the payload's 16-bit field can't overflow near T = 2^16
-    tj_c = jnp.where(valid, tj, T_pad)
-    okbit = None if ok_r is None else ok_r.reshape(-1)
-    dec = None
-    emit_valid = valid
-    if decode_k:
-        assert okbit is not None and 0 < D_cap <= 1 << 17
-        # split off the XLA-decodable pairs: every mask column <= 2
-        # contacts AND few enough live columns (cnt <= decode_k) that the
-        # decode's per-pair top_k window sees them all.  Pairs beyond
-        # D_cap (the decode's 2^17 pair-id packing ceiling) spill back to
-        # the emit kernel instead of overflowing — no growth hazard.
-        is_dec = valid & (okbit == 1) & (cnt <= decode_k)
-        dm = is_dec.astype(jnp.int32)
-        dpos = jnp.cumsum(dm) - dm
-        is_dec = is_dec & (dpos < D_cap)
-        emit_valid = valid & jnp.logical_not(is_dec)
-        ddst = jnp.where(is_dec, dpos, D_cap)
-        # raw word-plane row of entry (sorted slot, t): the sort key IS
-        # the original (step * W + w) slot index for live runs; cnt
-        # (<= 255) rides the same scatter in bits [23, 31) when the flat
-        # row index fits 23 bits (every standard config; a third scatter
-        # covers the rest)
-        flat = jnp.repeat(slot_r, R) * R + t
-        dec_pk = jnp.zeros((D_cap,), jnp.int32).at[ddst].set(
-            (ti_flat << 16) | tj_c, mode="drop")
-        ndec = jnp.minimum(dm.sum(), D_cap)
-        if SW * R <= 1 << 23:
-            dec_fc = jnp.zeros((D_cap,), jnp.int32).at[ddst].set(
-                flat | (cnt << 23), mode="drop")
-            dec = (dec_pk, dec_fc & 0x7FFFFF, dec_fc >> 23, ndec)
+def _band_contacts(a_fields, b_fields, ea, eb, ne, mask_kind: str, NB: int,
+                   dedup: bool, capacity: int):
+    """Count + emit over the entry list: (capacity,) a/b sorted positions
+    and the exact contact total.  ``a_fields`` are (Ta, G) tiles, viewed
+    here as (Ta * NB, G // NB) bands."""
+    BH = a_fields[0].shape[1] // NB
+    a_bands = tuple(f.reshape(-1, BH) for f in a_fields)
+    with jax.named_scope("tiles/count"):
+        if COUNT_PASS.get(jax.default_backend()) == "triton":
+            rows = band_row_counts_triton(a_bands, b_fields, ea, eb, ne,
+                                          mask_kind=mask_kind, NB=NB,
+                                          dedup=dedup)
         else:
-            dec_flat = jnp.zeros((D_cap,), jnp.int32).at[ddst].set(
-                flat, mode="drop")
-            dec_cnt = jnp.zeros((D_cap,), jnp.int32).at[ddst].set(
-                cnt, mode="drop")
-            dec = (dec_pk, dec_flat, dec_cnt, ndec)
-    payload = tj_c | (band4 << 16) | (cnt << 20)
-    if okbit is not None:
-        payload = payload | (okbit << 28)
-    a_idx2, (b_idx2,), nsteps2 = _leader_group(
-        ti_flat, emit_valid, (payload,), (T_pad,), W2, S2_cap)
-    if decode_k:
-        return a_idx2, b_idx2, nsteps2, over2, dec
-    return a_idx2, b_idx2, nsteps2, over2
-
-
-def _moment_decode(words, dec_pk, dec_flat, dec_cnt, ndec, G: int, K: int,
-                   capacity: int):
-    """Pure-XLA contact decode for the moment-captured pairs: no emit
-    kernel at all for pairs whose every mask column holds <= 2 contacts
-    and whose live-column count fits the per-pair ``top_k`` window
-    (cnt <= K, guaranteed by the _regroup_emit_runs routing).
-
-    ``words`` is tile_run_counts' (S_flat, 128) packed decode-word plane
-    (``cc << 23 | is << 15 | iq``, exact for cc <= 2 columns:
-    is = i1 + i2 <= 254 and iq = i1^2 + i2^2 < 2^15 never carry);
-    ``dec_*`` are the (D_cap,) compacted pair arrays from
-    _regroup_emit_runs.  Live columns carry word >= 1 << 23 > 0 = dead
-    columns, so per pair ``top_k(K)`` surfaces exactly the live columns
-    (order within the pair is irrelevant to the contact set).  Measured
-    rates (benchmarks/micro_xla_decode.py, v5e): row-gather 3.6 ms +
-    top_k(8) 4.8 ms at 131k x 128 — vs ~0.7 us per pair inside the emit
-    kernel (the per-pair MXU-launch floor that made the in-kernel fast
-    paths ~neutral).  The stream is built with ONE packed scatter
-    (payload ``e << 14 | i << 7 | col``, hence D_cap <= 2^17 — enforced
-    by the caller's spill-to-emit routing) + one (capacity,) unpack
-    gather of the small per-pair arrays, instead of two full-value
-    scatters.
-
-    Returns ``(gi, gj, total)`` — a dense (capacity,) contact-position
-    stream in _merge_streams part format.
-
-    ``words`` may be a tuple of equal-size per-chunk planes (the count
-    kernel's chunked outputs).  Two ways to gather the live rows, with
-    opposite winning regimes (both measured on v5e):
-
-    - **concatenate first** (one full HBM relayout copy of the plane at
-      ~100e9 int32/s, then ONE row gather): wins when D_cap is large —
-      per-chunk gathers would re-gather all D_cap rows from EVERY
-      chunk (rays: 6 chunks x (131k, 128) gathers measured 28.6 ms vs
-      16.7 with the concat);
-    - **per-chunk masked gathers** (no copy): wins when D_cap is small
-      relative to the plane (1M self-contact: D_cap 16k, the concat
-      copy alone was ~4 ms of a 10.2 ms decode).
-
-    Row gathers run ~21x more HBM-expensive per element than the
-    relayout copy (4.7e9 vs ~100e9 int32/s), hence the crossover
-    below.
-    """
-    D_cap = dec_pk.shape[0]
-    assert D_cap <= 1 << 17, D_cap
-    if not isinstance(words, (tuple, list)):
-        words = (words,)
-    S_flat = sum(w.shape[0] for w in words)
-    if len(words) > 1 and len(words) * D_cap * 21 >= S_flat:
-        words = (jnp.concatenate(words),)
-    rpc = words[0].shape[0]
-    idx = jnp.clip(dec_flat, 0, S_flat - 1)
-    if len(words) == 1:
-        rows = words[0][idx]                               # (D_cap, 128)
-    else:
-        rows = jnp.zeros((D_cap, 128), jnp.int32)
-        for c, wc in enumerate(words):
-            ic = idx - c * rpc
-            inc = (ic >= 0) & (ic < wc.shape[0])
-            rows = rows + jnp.where(
-                inc[:, None], wc[jnp.clip(ic, 0, wc.shape[0] - 1)], 0)
-    vals, cols = jax.lax.top_k(rows, K)                    # (D_cap, K)
-    e_in = jnp.arange(D_cap, dtype=jnp.int32)[:, None] < ndec
-    cc = jnp.where(e_in, (vals >> 23) & 0xFF, 0)
-    isv = (vals >> 15) & 0xFF
-    iq = vals & 0x7FFF
-    dv = jnp.sqrt(jnp.maximum(2 * iq - isv * isv, 0)
-                  .astype(jnp.float32)).astype(jnp.int32)
-    one = cc >= 1
-    two = cc == 2
-    i1 = jnp.where(two, (isv - dv) >> 1, isv)
-    i2 = (isv + dv) >> 1
-    e_id = jnp.arange(D_cap, dtype=jnp.int32)[:, None] << 14
-    p1 = e_id | (i1 << 7) | cols
-    p2 = e_id | (i2 << 7) | cols
-    nk = jnp.where(one, cc, 0)
-    exc = jnp.cumsum(nk, axis=1) - nk                      # within-pair
-    offs = jnp.cumsum(dec_cnt) - dec_cnt                   # pair offsets
-    total = jnp.sum(dec_cnt)
-    d1 = jnp.where(one, offs[:, None] + exc, capacity)
-    d2 = jnp.where(two, offs[:, None] + exc + 1, capacity)
-    dst = jnp.concatenate([d1, d2], axis=1).reshape(-1)
-    pk = jnp.concatenate([p1, p2], axis=1).reshape(-1)
-    stream = jnp.zeros((capacity,), jnp.int32).at[dst].set(
-        pk, mode="drop")
-    # unpack: pair id -> (ti, tj) via one gather of the (D_cap,) array
-    spk = dec_pk[jnp.clip(stream >> 14, 0, D_cap - 1)]
-    gi = ((spk >> 16) & 0xFFFF) * G + ((stream >> 7) & 0x7F)
-    gj = (spk & 0xFFFF) * G + (stream & 0x7F)
-    # f32 to match the emit kernel's stream parts in _merge_streams
-    # (positions < 2^24 are f32-exact)
-    return gi.astype(jnp.float32), gj.astype(jnp.float32), total
-
-
-def _bounds_pyramid(blos, bups, T: int, G: int, NB: int):
-    """Sub-band and tile bounds via the selection-matmul halving pyramid
-    (same MXU pattern as build._aggregate_bbox_fast): the (T, NB, G//NB)
-    reshape-min reductions are lane-shuffle-bound on the VPU (~3 ms of the
-    ~7 ms phase 1 at 1M, VERDICT r4 weak #4), while one 0/1 even/odd
-    selection matmul per halving level runs the same reduction on the MXU.
-    All six bounds stack into one (6, T*G) min-problem (ups negated);
-    HIGHEST precision keeps the f32 selection products bit-exact.
-
-    Requires the pad sentinel to be FINITE (0 * inf = NaN in the selection
-    matmul) — callers pad with finfo.max / -finfo.max, which the overlap
-    predicates treat exactly like ±inf.
-    """
-    import numpy as np
-    dtype = blos[0].dtype
-    stacked = jnp.stack([b.reshape(-1) for b in blos] +
-                        [(-b).reshape(-1) for b in bups])    # (6, T*G)
-    SL = 256
-    sel_np = np.zeros((SL, SL), np.float64)
-    sel_np[2 * np.arange(SL // 2), np.arange(SL // 2)] = 1.0
-    sel_np[2 * np.arange(SL // 2) + 1, SL // 2 + np.arange(SL // 2)] = 1.0
-    sel = jnp.asarray(sel_np, dtype)
-
-    def halve(c):
-        if c.shape[1] >= SL and c.shape[1] % SL == 0:
-            cb = c.reshape(6, -1, SL)
-            out = jax.lax.dot_general(
-                cb, sel, (((2,), (0,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST)
-            return jnp.minimum(out[..., :SL // 2],
-                               out[..., SL // 2:]).reshape(6, -1)
-        return c.reshape(6, -1, 2).min(-1)
-
-    c = stacked
-    while c.shape[1] > T * NB:
-        c = halve(c)
-    sub_lo = tuple(c[k].reshape(T, NB) for k in range(3))
-    sub_up = tuple((-c[3 + k]).reshape(T, NB) for k in range(3))
-    while c.shape[1] > T:
-        c = halve(c)
-    tile_lo = tuple(c[k] for k in range(3))
-    tile_up = tuple(-c[3 + k] for k in range(3))
-    return tile_lo, tile_up, sub_lo, sub_up
+            rows = band_row_counts(a_bands, b_fields, ea, eb, ne,
+                                   mask_kind=mask_kind, NB=NB, dedup=dedup,
+                                   chunk=ENTRY_CHUNK)
+    with jax.named_scope("tiles/emit"):
+        return band_emit(rows, a_bands, b_fields, ea, eb,
+                         mask_kind=mask_kind, NB=NB, dedup=dedup,
+                         capacity=capacity)
 
 
 def _tiled_fields(bvh: BVH, G: int, NB: int = 4):
-    """Tile the sorted leaf fields to (T, G) plus padded tile AABBs and
-    per-(G/NB)-leaf sub-band AABBs (tuples of (T, NB), used by the
-    phase-1b band-bit kernel, ops/subtile.py)."""
+    """Tile the sorted leaf fields to (T, G) plus tile AABBs (T,) and
+    per-(G/NB)-leaf band AABBs (T, NB) (tuples per axis)."""
     vol = bvh.leaves.volume
     n = bvh.num_leaves
     T = -(-n // G)
@@ -781,98 +223,34 @@ def _tiled_fields(bvh: BVH, G: int, NB: int = 4):
         return a.reshape(T, G)
 
     # NaN field padding: every predicate comparison against a padded leaf
-    # is false, so kernels need no explicit trailing-tile validity guard
+    # is false, so no validity guard is needed for the trailing tile; the
+    # bound pads are min/max-neutral
     nan = float("nan")
-    # finite max sentinel (min/max-neutral like ±inf, NaN-safe in the
-    # selection matmuls of _bounds_pyramid; the overlap predicates treat
-    # lo=+big / up=-big pads exactly like ±inf: they never overlap)
-    big = float(jnp.finfo(vol.dtype).max)
     if isinstance(vol, BSphere):
         fields = tuple(padded(c, nan) for c in vol.xs) + (padded(vol.r, nan),)
-        blos = tuple(padded(vol.xs[k] - vol.r, big) for k in range(3))
-        bups = tuple(padded(vol.xs[k] + vol.r, -big) for k in range(3))
+        blos = tuple(padded(vol.xs[k] - vol.r, jnp.inf) for k in range(3))
+        bups = tuple(padded(vol.xs[k] + vol.r, -jnp.inf) for k in range(3))
         sphere = True
     else:
         fields = tuple(padded(c, nan) for c in vol.los) + \
             tuple(padded(c, nan) for c in vol.ups)
-        blos = tuple(padded(c, big) for c in vol.los)
-        bups = tuple(padded(c, -big) for c in vol.ups)
+        blos = tuple(padded(c, jnp.inf) for c in vol.los)
+        bups = tuple(padded(c, -jnp.inf) for c in vol.ups)
         sphere = False
-
-    if n >= (1 << 16) and (T * G) % 512 == 0 and (G // NB) >= 4:
-        tile_lo, tile_up, sub_lo, sub_up = _bounds_pyramid(
-            blos, bups, T, G, NB)
-    else:
-        tile_lo = tuple(b.min(axis=1) for b in blos)
-        tile_up = tuple(b.max(axis=1) for b in bups)
-        # finite-max (not NaN) padding keeps partial trailing sub-bands
-        # exact
-        sub_lo = tuple(b.reshape(T, NB, G // NB).min(axis=2) for b in blos)
-        sub_up = tuple(b.reshape(T, NB, G // NB).max(axis=2) for b in bups)
+    sub_lo = tuple(b.reshape(T, NB, G // NB).min(axis=2) for b in blos)
+    sub_up = tuple(b.reshape(T, NB, G // NB).max(axis=2) for b in bups)
+    tile_lo = tuple(b.min(axis=1) for b in sub_lo)
+    tile_up = tuple(b.max(axis=1) for b in sub_up)
     return fields, sphere, tile_lo, tile_up, sub_lo, sub_up, T
-
-
-def _extract_contacts(slots, counts, leaf_index, narrow_mask_fn,
-                      capacity: int, leaf_index_b=None,
-                      sort_pairs: bool = True, retest_fn=None,
-                      swap_sections: bool = False):
-    """Compact the kernels' packed per-pair slot rows into the final
-    (capacity, 2) contact list of user-index pairs — sorted (min, max) for
-    self-contact, tree order (i1, i2) for two-BVH traversal
-    (ref traverse_pair_cpu.jl:633).
-
-    ``slots`` are the raw (P_cap, 2*seg+128) rows from
-    ops/tile_contact (gi at lane [0, cap), gj at [seg, seg+cap)).
-
-    Gather-based compaction: a scatter of all padded slots runs at the XLA
-    scatter rate (~0.55e9 elem/s — 30+ ms at 1M leaves), so instead each of
-    the ``capacity`` output slots *gathers* its source: the owning pair's
-    flat base is recovered by scattering it at the pair's exclusive offset
-    (P_cap elements only) and taking a running max (``cummax``); slicing
-    gi/gj out of the packed rows first would materialize two relayout
-    copies, so the gathers index the packed buffer directly.
-
-    ``retest_fn(gi, gj) -> bool``: optional exact re-test of candidates when
-    the kernel used a conservative (superset) contact mask; composed with
-    the ``narrow`` predicate before final compaction.
-    """
-    P_cap, stride = slots.shape
-    seg = (stride - 128) // 2
-    counts = counts.astype(jnp.int32)
-    offs = jnp.cumsum(counts)
-    total = offs[-1]
-    offs_ex = offs - counts
-    dst = jnp.where(counts > 0, offs_ex, capacity)
-    # output slot k reads packed element ``lane + base(owning pair)`` where
-    # base(p) = p * stride - offs_ex[p]; base is non-decreasing over valid
-    # pairs (counts <= CAP_PAIR < stride), so one scatter-at-start + cummax
-    # recovers it — a single scan, no per-lane offset gather
-    base = jnp.arange(P_cap, dtype=jnp.int32) * stride - offs_ex
-    base_of = jnp.full((capacity,), jnp.iinfo(jnp.int32).min, jnp.int32
-                       ).at[dst].set(base, mode="drop")
-    base_of = jax.lax.cummax(base_of)
-    lane = jnp.arange(capacity, dtype=jnp.int32)
-    flat = jnp.clip(lane + base_of, 0, P_cap * stride - 1)
-    flat_hi = jnp.minimum(flat + seg, P_cap * stride - 1)
-    if swap_sections:        # rays: first column = gj section (leaf)
-        flat, flat_hi = flat_hi, flat
-    slots_flat = slots.reshape(-1)
-    out_gi = slots_flat[flat].astype(jnp.int32)
-    out_gj = slots_flat[flat_hi].astype(jnp.int32)
-    return _finish_contacts(out_gi, out_gj, total, leaf_index,
-                            narrow_mask_fn, capacity,
-                            leaf_index_b=leaf_index_b,
-                            sort_pairs=sort_pairs, retest_fn=retest_fn)
 
 
 def _finish_contacts(out_gi, out_gj, total, leaf_index, narrow_mask_fn,
                      capacity: int, leaf_index_b=None,
-                     sort_pairs: bool = True, retest_fn=None):
+                     sort_pairs: bool = True):
     """Map a dense (capacity,) stream of global sorted positions to the
-    final user-index contact list: index mapping, optional exact
-    retest / narrow filtering (re-compacted), and pair ordering."""
+    final user-index contact list: index mapping, optional narrow
+    filtering (re-compacted), and pair ordering."""
     lane = jnp.arange(capacity, dtype=jnp.int32)
-    # map global sorted positions -> user indices (small gather)
     if leaf_index_b is None:
         leaf_index_b = leaf_index
     n = leaf_index.shape[0]
@@ -882,18 +260,14 @@ def _finish_contacts(out_gi, out_gj, total, leaf_index, narrow_mask_fn,
     ui = leaf_index[out_gi]
     uj = leaf_index_b[out_gj]
     in_range = lane < total
-    if retest_fn is not None or narrow_mask_fn is not None:
-        keep = in_range
-        if retest_fn is not None:
-            keep &= retest_fn(out_gi, out_gj)
-        if narrow_mask_fn is not None:
-            keep &= narrow_mask_fn(out_gi, out_gj)
+    if narrow_mask_fn is not None:
+        keep = in_range & narrow_mask_fn(out_gi, out_gj)
         k = keep.astype(jnp.int32)
-        pos2 = jnp.cumsum(k) - k
+        pos2 = jnp.cumsum(k, dtype=jnp.int32) - k
         posx2 = jnp.where(keep, pos2, capacity)
         ui = jnp.zeros((capacity,), ui.dtype).at[posx2].set(ui, mode="drop")
         uj = jnp.zeros((capacity,), uj.dtype).at[posx2].set(uj, mode="drop")
-        total = k.sum()
+        total = jnp.sum(k, dtype=jnp.int32)
         in_range = lane < total
     if sort_pairs:
         a = jnp.where(in_range, jnp.minimum(ui, uj), 0)
@@ -904,242 +278,100 @@ def _finish_contacts(out_gi, out_gj, total, leaf_index, narrow_mask_fn,
     return total, jnp.stack([a, b], axis=-1)
 
 
-def _merge_streams(parts, capacity: int):
-    """Concatenate per-chunk dense contact streams (gi, gj, total) into one
-    (capacity,) pair of position arrays + grand total.  Single-chunk runs
-    (every scene whose step list fits one SMEM chunk) pass through.
+def _leaf_narrow(narrow, leaves_a, leaves_b):
+    """Adapt a user ``narrow(leaves_i, leaves_j)`` predicate to sorted
+    positions; None stays None."""
+    if narrow is None:
+        return None
 
-    Gather-based: each of the ``capacity`` output slots computes its
-    (chunk, offset) source from the chunks' exclusive prefix totals
-    (len(parts) scalar wheres) and gathers it — both a cumsum+scatter
-    pair and a key-sort compaction measured **~110 ms** on the 5-chunk x
-    262k merge at 100k rays (a data-permutation pathology only the ray
-    path's multi-chunk emit grid ever hit; 1M self-contact fits one
-    chunk and passes through), while two overlapped 262k gathers cost
-    ~3 ms — the same trade the round-2 extraction rewrite measured."""
-    if len(parts) == 1:
-        gi, gj, tot = parts[0]
-        return gi.astype(jnp.int32), gj.astype(jnp.int32), tot
-    C = parts[0][0].shape[0]
-    gis = jnp.concatenate([p[0] for p in parts])
-    gjs = jnp.concatenate([p[1] for p in parts])
-    prefix = []                       # exclusive prefix of chunk totals
-    total = jnp.zeros((), jnp.int32)
-    for p in parts:
-        prefix.append(total)
-        total = total + p[2]
-    k = jnp.arange(capacity, dtype=jnp.int32)
-    flat = k                          # chunk 0 source by default
-    for c in range(1, len(parts)):
-        flat = jnp.where(k >= prefix[c], c * C + (k - prefix[c]), flat)
-    flat = jnp.clip(flat, 0, gis.shape[0] - 1)
-    in_range = k < total
-    out_gi = jnp.where(in_range, gis[flat].astype(jnp.int32), 0)
-    out_gj = jnp.where(in_range, gjs[flat].astype(jnp.int32), 0)
-    return out_gi, out_gj, total
+    def narrow_fn(gi, gj):
+        la = jax.tree_util.tree_map(lambda x: x[gi], leaves_a)
+        lb = jax.tree_util.tree_map(lambda x: x[gj], leaves_b)
+        return narrow(la, lb)
+
+    return narrow_fn
+
+
+def _overflow_bits(contact_over, candidate_over):
+    """Overflow bitmask: bit 0 = the contact buffer (grow ``capacity``),
+    bit 1 = a candidate list (grow ``pair_capacity``)."""
+    return (jnp.where(contact_over, 1, 0) | jnp.where(candidate_over, 2, 0)
+            ).astype(jnp.int32)
 
 
 @partial(jax.jit, static_argnames=("capacity", "alg", "pair_capacity",
-                                   "narrow", "interpret"))
+                                   "narrow"))
 def traverse_tiles_fixed(bvh: BVH, capacity: int, *,
                          alg: "TileTraversal" = None,
                          pair_capacity: Optional[int] = None,
-                         narrow=None,
-                         interpret: Optional[bool] = None):
+                         narrow=None):
     """Fully-traced fixed-capacity tile self-contact traversal.
 
-    Returns ``(total, contacts, overflow, num_checks)``; ``overflow``
-    signals that a static capacity (pair list, per-pair slots, or contact
-    buffer) was exceeded and results are incomplete — the
+    Returns ``(total, contacts, overflow, num_checks)``; ``overflow`` is
+    nonzero when a static capacity (bit 0: the contact buffer, bit 1: the
+    candidate lists) was exceeded and results are incomplete — the
     :func:`traverse_tiles` wrapper grows and re-runs.  ``num_checks`` is
-    the number of leaf-pair contact tests the kernel executes (live bands
-    x band size — the tile engine's analogue of the reference's traversal
-    self-metric, ref traverse.jl:48,59).
+    the number of leaf-pair tests of the live entries (the tile engine's
+    analogue of the reference's traversal self-metric,
+    ref traverse.jl:48,59).
     """
-    from ..ops.tile_contact import (tile_group_contacts, tile_group_emit,
-                                    tile_run_counts)
-
     alg = alg or TileTraversal()
-    G = alg.tile
-    if interpret is None:
-        interpret = _use_interpret()
-
-    NB = alg.bands
-    fields, sphere, tile_lo, tile_up, sub_lo, sub_up, T = \
-        _tiled_fields(bvh, G, NB)
-    if T >= 1 << 16:
-        raise ValueError("tile count exceeds 65536; raise the tile size")
+    G, NB = alg.tile, alg.bands
     if pair_capacity is None:
-        pair_capacity = _pair_capacity_for(T)
-
-    W = alg.count_w
-    narrow_fn = None
-    if narrow is not None:
-        leaves = bvh.leaves
-
-        def narrow_fn(gi, gj):
-            la = jax.tree_util.tree_map(lambda x: x[gi], leaves)
-            lb = jax.tree_util.tree_map(lambda x: x[gj], leaves)
-            return narrow(la, lb)
-
-    use_two_phase = alg.pair_cap <= 128 and capacity % 1024 == 0
-    if use_two_phase:
-        # two-phase: run-block count kernel (aligned (R, 8, G) b-slab DMAs,
-        # no compaction, no scalar syncs) -> XLA regroup of the ~7-15% of
-        # pairs with contacts -> emit kernel whose control flow (skip /
-        # append length / flush cursor) is entirely scalar-prefetch-driven,
-        # streaming contacts dense to HBM
-        R = alg.run_r
-        # smaller chunks: the run path prefetches the run indices plus
-        # R * NB // 32 band-word arrays per step slot, and SMEM holds 1 MB
-        S_cap, CHUNK = _step_caps(pair_capacity // W + T)
-        ch_cap = _run_chunk_cap(W, R, NB)
-        if CHUNK > ch_cap:
-            CHUNK = ch_cap
-            S_cap = -(-S_cap // CHUNK) * CHUNK
-        pad_run = (-(-T // R) * R) // R
-        a_idx, run_idx, bm_grp, nsteps, num_checks, pair_overflow = \
-            _phase1_tile_runs(tile_lo, tile_up, sub_lo, sub_up, G,
-                              pair_capacity, W, S_cap, R, pad_run, NB,
-                              interpret=interpret)
-        mask_kind = "sphere" if sphere else "box"
-        DK = alg.decode_k
-        cnt_parts = []
-        for start in range(0, S_cap, CHUNK):
-            ns_c = jnp.clip(nsteps - start, 0, CHUNK)
-
-            def run_chunk(start=start, ns_c=ns_c):
-                return tile_run_counts(
-                    a_idx[start:start + CHUNK],
-                    run_idx[start * W:(start + CHUNK) * W],
-                    tuple(w[start * W:(start + CHUNK) * W]
-                          for w in bm_grp),
-                    ns_c.reshape(1).astype(jnp.int32), fields,
-                    mask_kind=mask_kind, G=G, W=W, R=R, NB=NB,
-                    dedup=True, interpret=interpret,
-                    with_colmax=not DK, moments=bool(DK))
-
-            # generous S_cap leaves whole chunks dead on typical scenes;
-            # their counts are identically zero, so skip the kernel launch
-            # (a dead grid still costs ~0.3 us/step in DMA issue)
-            dead = ((jnp.zeros((CHUNK * W * R,), jnp.int32),
-                     jnp.zeros((CHUNK * W * R,), jnp.int32),
-                     jnp.zeros((CHUNK * W * R, 128), jnp.int32))
-                    if DK else
-                    (jnp.zeros((CHUNK * W * R,), jnp.int32),
-                     jnp.zeros((CHUNK * W * R,), jnp.int32)))
-            cnt_parts.append(jax.lax.cond(ns_c > 0, run_chunk,
-                                          lambda d=dead: d))
-        # The barrier is load-bearing: counts has two consumers (the valid
-        # chain and the packed payload below), and XLA duplicates the cheap
-        # slice-of-pallas-output chain into both — the later copy re-reads
-        # the kernel's output buffer after it has been reused, yielding
-        # partially-zero counts (measured: 77/118 emit entries dropped at
-        # N=5000 on the real chip; bit-exact in interpret mode).
-        # the moment-word planes stay per-chunk: concatenating them costs
-        # a full HBM copy of the ~GB-scale plane (_moment_decode gathers
-        # per chunk instead)
-        barred = jax.lax.optimization_barrier(
-            tuple(jnp.concatenate([p[k] for p in cnt_parts])
-                  for k in range(2)) +
-            (tuple(p[2] for p in cnt_parts) if DK else ()))
-        counts, colmax = barred[0], barred[1]
-        words = barred[2:] if DK else None
-        slot_overflow = jnp.any(counts > alg.pair_cap)
-
-        W2 = alg.emit_w
-        S2_cap, CHUNK2 = _step_caps(T + capacity // (8 * W2))
-        E2_cap = max(4096, capacity // 8)
-        # the decode's top_k/scatter cost scales with D_cap, not live pairs:
-        # size for the typical decodable population (pairs <= contacts;
-        # ~11k at 1M) — overflow spills to the emit kernel, so tight is
-        # safe (rays, whose live pairs ~approach capacity/2, size their
-        # own in ray_tiles.py)
-        D_cap = min(max(8192, capacity // 8), E2_cap * R, 1 << 17) \
-            if DK else 0
-        regrouped = _regroup_emit_runs(
-            a_idx, run_idx, bm_grp, counts, W2, S2_cap, E2_cap, T, R, NB,
-            colmax=colmax, decode_k=DK, D_cap=D_cap)
-        a_idx2, b_idx2, nsteps2, over2 = regrouped[:4]
-        cap_overflow = (nsteps2 > S2_cap) | over2
-        parts = []
-        if DK:
-            parts.append(_moment_decode(
-                words, *regrouped[4], G, DK, capacity))
-        for start in range(0, S2_cap, CHUNK2):
-            ns_c = jnp.clip(nsteps2 - start, 0, CHUNK2)
-
-            def emit_chunk(start=start, ns_c=ns_c):
-                return tile_group_emit(
-                    a_idx2[start:start + CHUNK2],
-                    b_idx2[start * W2:(start + CHUNK2) * W2],
-                    ns_c.reshape(1).astype(jnp.int32), fields,
-                    mask_kind=mask_kind, G=G, W=W2,
-                    ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
-                    dedup=True, CAP=capacity, interpret=interpret)
-
-            # skip whole dead chunks (the generous S2_cap leaves most of
-            # the padded grid dead; a dead step still costs ~0.3 us issue)
-            gi_c, gj_c, tot_c, flags_c = jax.lax.cond(
-                ns_c > 0, emit_chunk,
-                lambda: (jnp.zeros((capacity,), jnp.float32),
-                         jnp.zeros((capacity,), jnp.float32),
-                         jnp.zeros((), jnp.int32),
-                         jnp.zeros((), jnp.int32)))
-            parts.append((gi_c, gj_c, tot_c))
-            cap_overflow = cap_overflow | ((flags_c & 1) > 0)
-            slot_overflow = slot_overflow | ((flags_c & 2) > 0)
-        # barrier: the merge consumes each chunk's (gi, gj, total) through
-        # several chains (two gather operands + the prefix totals); without
-        # it XLA rematerializes the emit pipeline per chain — measured
-        # +110 ms at 100k rays (same lesson as the count-kernel barrier)
-        parts = jax.lax.optimization_barrier(parts)
-        gi_pos, gj_pos, total = _merge_streams(parts, capacity)
+        pair_capacity = _pair_capacity_for(-(-bvh.num_leaves // G), NB)
+    fields, sphere, ea, eb, ne, sp_over = _self_entries(bvh, G, NB,
+                                                        pair_capacity)
+    gi, gj, raw_total = _band_contacts(
+        fields, fields, ea, eb, ne, "sphere" if sphere else "box", NB,
+        dedup=True, capacity=capacity)
+    with jax.named_scope("tiles/finish"):
         total, contacts = _finish_contacts(
-            gi_pos, gj_pos, total, bvh.leaves.index, narrow_fn, capacity)
-        overflow = (jnp.where(pair_overflow | cap_overflow
-                              | (total > capacity), 1, 0)
-                    | jnp.where(slot_overflow, 2, 0))
-        return total, contacts, overflow, num_checks
-
-    # pair-granularity fallback path (large slot caps from the growth loop)
-    packed, band, npairs = _phase1_tile_pairs(
-        tile_lo, tile_up, sub_lo, sub_up, G, pair_capacity)
-    pair_overflow = npairs > pair_capacity
-    # regroup by shared a-tile for the grouped wide kernel
-    S_cap, CHUNK = _step_caps(pair_capacity // W + T)
-    a_idx, b_idx, nsteps = _group_pairs(packed, band, npairs, W, S_cap, T)
-    pair_overflow |= nsteps > S_cap
-    slot_parts, cnt_parts = [], []
-    slot_overflow = jnp.zeros((), jnp.bool_)
-    for start in range(0, S_cap, CHUNK):
-        ns_c = jnp.clip(nsteps - start, 0, CHUNK)
-        slots_c, cnt_c, ov_c = tile_group_contacts(
-            a_idx[start:start + CHUNK],
-            b_idx[start * W:(start + CHUNK) * W],
-            ns_c.reshape(1).astype(jnp.int32), fields,
-            mask_kind="sphere" if sphere else "box", G=G, W=W,
-            ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
-            dedup=True, interpret=interpret)
-        slot_parts.append(slots_c)
-        cnt_parts.append(cnt_c)
-        slot_overflow = slot_overflow | ov_c
-    slots = jnp.concatenate(slot_parts, axis=0)
-    counts = jnp.concatenate(cnt_parts, axis=0)
-
-    total, contacts = _extract_contacts(
-        slots, counts, bvh.leaves.index, narrow_fn, capacity)
-    # bitmask: bit 0 = a buffer capacity (pair list / contact list) was
-    # exceeded (grow capacities), bit 1 = a kernel slot cap was exceeded
-    # (grow row_cap/pair_cap) — the wrappers grow only what overflowed
-    overflow = (jnp.where(pair_overflow | (total > capacity), 1, 0)
-                | jnp.where(slot_overflow, 2, 0))
-    from ..ops.tile_contact import N_BANDS
-    lanep = jnp.arange(band.shape[0], dtype=jnp.int32)
-    num_checks = jnp.sum(
-        jnp.where(lanep < npairs, jax.lax.population_count(band), 0)
-    ).astype(jnp.float32) * ((G // N_BANDS) * G)
+            gi, gj, raw_total, bvh.leaves.index,
+            _leaf_narrow(narrow, bvh.leaves, bvh.leaves), capacity)
+    overflow = _overflow_bits(raw_total > capacity,
+                              sp_over | (ne > pair_capacity))
+    num_checks = ne.astype(jnp.float32) * ((G // NB) * G)
     return total, contacts, overflow, num_checks
+
+
+def _self_entries(bvh: BVH, G: int, NB: int, pair_capacity: int):
+    """Phase 1 of self-contact: ``(fields, sphere, ea, eb, ne,
+    sp_overflow)`` — the tiled leaf fields and the live entry list."""
+    with jax.named_scope("tiles/phase1"):
+        fields, sphere, tile_lo, tile_up, sub_lo, sub_up, T = \
+            _tiled_fields(bvh, G, NB)
+        si, sj, nsp, sp_over = _phase1_superpairs(tile_lo, tile_up,
+                                                  pair_capacity)
+        bits = subtile_band_bits(sub_lo, sub_up, tile_lo, tile_up, si, sj,
+                                 nsp, Ta=T, Tb=T, triangle=True, n_bands=NB)
+        ea, eb, ne = _entries_from_bits(bits, si, sj, NB, pair_capacity)
+    return fields, sphere, ea, eb, ne, sp_over
+
+
+def _grow_loop(run, capacity: int, pair_capacity: int,
+               options: BVHOptions):
+    """Host wrapper loop: run the fixed-capacity traversal, growing the
+    capacities named by its overflow bits.  Returns ``(total, contacts,
+    num_checks, pair_capacity)`` or None if the scene outgrew 8 rounds."""
+    for _ in range(8):
+        total, contacts, overflow, num_checks = run(capacity, pair_capacity)
+        ov = int(overflow)
+        if ov == 0:
+            return total, contacts, num_checks, pair_capacity
+        if ov & 1:
+            capacity = _grow_capacity(capacity, options.capacity_growth)
+        if ov & 2:
+            pair_capacity = _grow_capacity(pair_capacity,
+                                           options.capacity_growth)
+    return None
+
+
+def _initial_capacity(need: int, options: BVHOptions,
+                      cache: Optional[BVHTraversal]) -> int:
+    if cache is not None and cache.cache1.ndim == 2 \
+            and cache.cache1.shape[0] > 0:
+        return cache.cache1.shape[0]
+    return 1 << math.ceil(math.log2(max(options.min_capacity, need)))
 
 
 def traverse_tiles(bvh: BVH, *, alg: "TileTraversal" = None, narrow=None,
@@ -1152,354 +384,80 @@ def traverse_tiles(bvh: BVH, *, alg: "TileTraversal" = None, narrow=None,
     repeat (the reference's cache-reuse contract, ref traverse.jl:120-145).
     """
     alg = alg or TileTraversal()
-    alg = _merge_cached_alg(alg, cache)
     idt = bvh.skips.dtype
     if bvh.tree.real_nodes <= 1:
         return BVHTraversal(num_contacts=jnp.zeros((), idt),
                             cache1=jnp.zeros((0, 2), idt),
                             cache2=jnp.zeros((0,), idt), start_level1=1)
-    if cache is not None and cache.cache1.ndim == 2 \
-            and cache.cache1.shape[0] > 0:
-        capacity = cache.cache1.shape[0]
-    else:
-        # ~18x headroom over measured unit-density contact counts
-        # (0.055 contacts/leaf at 1M); the growth loop covers denser scenes
-        # and extraction cost scales with this capacity
-        capacity = max(options.min_capacity, bvh.num_leaves)
-        capacity = 1 << math.ceil(math.log2(capacity))
+    # the contact buffer starts at one slot per leaf (a unit-density scene
+    # holds ~0.06 contacts per leaf); denser scenes grow it
+    capacity = _initial_capacity(bvh.num_leaves, options, cache)
     if cache is not None and cache.pair_capacity > 0:
         pair_capacity = cache.pair_capacity
     else:
-        T = -(-bvh.num_leaves // alg.tile)
-        pair_capacity = _pair_capacity_for(T)
-    for _ in range(8):
-        total, contacts, overflow, num_checks = traverse_tiles_fixed(
-            bvh, capacity, alg=alg, pair_capacity=pair_capacity,
-            narrow=narrow)
-        ov = int(overflow)
-        if ov == 0:
-            return BVHTraversal(num_contacts=int(total), cache1=contacts,
-                                cache2=jnp.zeros((0,), idt), start_level1=1,
-                                num_checks=int(num_checks),
-                                pair_capacity=pair_capacity, tile_alg=alg)
-        if ov & 1:                       # buffer capacity overflow
-            capacity = _grow_capacity(capacity, options.capacity_growth)
-            pair_capacity = _grow_capacity(
-                pair_capacity, options.capacity_growth, 8192)
-        if ov & 2:                       # kernel slot-cap overflow
-            alg = _grow_alg(alg)
-    # scene too dense for the tile engine's VMEM-bounded slot caps (one
-    # 128x128-leaf block holding > MAX_PAIR_CAP contacts) — the walk engine
-    # handles any density
-    from .api import traverse as _traverse
-    from .types import LVTTraversal
-    return _traverse(bvh, LVTTraversal(), narrow=narrow, options=options)
+        pair_capacity = _pair_capacity_for(-(-bvh.num_leaves // alg.tile),
+                                           alg.bands)
+
+    def run(cap, pcap):
+        return traverse_tiles_fixed(bvh, cap, alg=alg, pair_capacity=pcap,
+                                    narrow=narrow)
+
+    done = _grow_loop(run, capacity, pair_capacity, options)
+    if done is None:
+        from .api import traverse as _traverse
+        from .types import LVTTraversal
+        return _traverse(bvh, LVTTraversal(), narrow=narrow, options=options)
+    total, contacts, num_checks, pair_capacity = done
+    return BVHTraversal(num_contacts=int(total), cache1=contacts,
+                        cache2=jnp.zeros((0,), idt), start_level1=1,
+                        num_checks=int(num_checks),
+                        pair_capacity=pair_capacity, tile_alg=alg)
 
 
 # --------------------------------------------------------------------------
-# Two-BVH tile traversal (dense cross-tile pass)
+# Two-BVH tile traversal
 # --------------------------------------------------------------------------
-
-@partial(jax.jit, static_argnames=("G", "P_cap", "interpret"))
-def _phase1_cross_pairs(tlo1, tup1, asub_lo, asub_up, tlo2, tup2,
-                        G: int, P_cap: int,
-                        interpret: Optional[bool] = None):
-    """Cross-tile pair extraction between two tiled leaf sets: overlapping
-    (tile-of-bvh1, tile-of-bvh2) pairs — the full grid, no triangle — with
-    per-pair bvh1-sub-band bits, exactly like :func:`_phase1_tile_pairs`
-    (same phase-1b kernel with ``triangle=False``, same compactor)."""
-    if interpret is None:
-        interpret = _use_interpret()
-    T1 = tlo1[0].shape[0]
-    T2 = tlo2[0].shape[0]
-    SS = 32
-
-    def prep(tl, tu):
-        T = tl[0].shape[0]
-        S = -(-T // SS)
-        pad = S * SS - T
-
-        def padt(a, fill):
-            if pad:
-                a = jnp.concatenate([a, jnp.full((pad,), fill, a.dtype)])
-            return a
-        tl = tuple(padt(c, jnp.inf) for c in tl)
-        tu = tuple(padt(c, -jnp.inf) for c in tu)
-        slo = tuple(c.reshape(S, SS).min(1) for c in tl)
-        sup = tuple(c.reshape(S, SS).max(1) for c in tu)
-        return slo, sup, S
-
-    slo1, sup1, S1 = prep(tlo1, tup1)
-    slo2, sup2, S2 = prep(tlo2, tup2)
-
-    # level A: full S1 x S2 supertile overlap grid
-    ovA = _overlap(slo1, sup1, slo2, sup2)
-    SP_cap = max(S1 * SUPERPAIRS_PER_SUPERTILE,
-                 S2 * SUPERPAIRS_PER_SUPERTILE, 64, P_cap // 64)
-    SP_cap = -(-SP_cap // 16) * 16
-    kA = jnp.arange(S1 * S2, dtype=jnp.int32)
-    spacked, nsp = _compact_flat(ovA.reshape(-1), kA, SP_cap)
-    sp_overflow = nsp > SP_cap
-    si = spacked // S2
-    sj = spacked % S2
-
-    # level B (phase 1b): bvh1-sub-band bits vs bvh2 tiles, full grid
-    from ..ops.subtile import subtile_band_bits
-    asub_lo, asub_up = _fold_sub4(asub_lo, asub_up)
-    bits = subtile_band_bits(
-        asub_lo, asub_up, tlo2, tup2, si, sj,
-        nsp.reshape(1).astype(jnp.int32), Ta=T1, Tb=T2, triangle=False,
-        interpret=interpret)                     # (SP_cap, SS, 128)
-    bits = bits[:, :, :SS]
-
-    bits_t = jnp.transpose(bits, (1, 2, 0))      # (SS_i, SS_j, SP_cap)
-    ovB_t = (bits_t > 0).reshape(-1)
-    k_i = jax.lax.broadcasted_iota(jnp.int32, (SS, SS, SP_cap), 0)
-    k_j = jax.lax.broadcasted_iota(jnp.int32, (SS, SS, SP_cap), 1)
-    tii_t = (si * SS)[None, None, :] + k_i
-    tjj_t = ((sj * SS)[None, None, :] + k_j) | (bits_t << 16)
-
-    from ..ops.compaction import finish_compact, tile_compact
-    cap_c = max(2048, P_cap // 116)
-    slots, counts, c_over = tile_compact(
-        ovB_t, (tii_t.reshape(-1), tjj_t.reshape(-1)),
-        cap=cap_c, row_cap=128, interpret=interpret)
-    (out_ti, out_tjb), npairs = finish_compact(slots, counts, P_cap)
-    packed = (out_ti << 16) | (out_tjb & 0xFFFF)
-    band = out_tjb >> 16
-    npairs = jnp.where(sp_overflow | c_over, P_cap + 1, npairs)
-    return packed, band, npairs
-
-
-@partial(jax.jit, static_argnames=("G", "P_cap", "W", "S_cap", "R",
-                                   "pad_run", "NB", "interpret"))
-def _phase1_cross_runs(tlo1, tup1, asub_lo, asub_up, tlo2, tup2, G: int,
-                       P_cap: int, W: int, S_cap: int, R: int,
-                       pad_run: int, NB: int = 4,
-                       interpret: Optional[bool] = None):
-    """Cross-BVH counterpart of :func:`_phase1_tile_runs`: overlapping
-    (tile-of-bvh1, aligned run-of-bvh2-tiles) with per-tile band words,
-    W-grouped for the run-block count kernel.  Full S1 x S2 grid, no
-    triangle/dedup — the reference's pair-traversal semantics
-    (ref traverse_pair_cpu.jl:615-645).
-
-    Returns ``(a_idx, run_idx, bm_grp, nsteps, num_checks, overflow)``.
-    """
-    if interpret is None:
-        interpret = _use_interpret()
-    assert R in (8, 16, 32)
-    T1 = tlo1[0].shape[0]
-    T2 = tlo2[0].shape[0]
-    SS = 32
-
-    def prep(tl, tu):
-        T = tl[0].shape[0]
-        S = -(-T // SS)
-        pad = S * SS - T
-
-        def padt(a, fill):
-            if pad:
-                a = jnp.concatenate([a, jnp.full((pad,), fill, a.dtype)])
-            return a
-        tl = tuple(padt(c, jnp.inf) for c in tl)
-        tu = tuple(padt(c, -jnp.inf) for c in tu)
-        slo = tuple(c.reshape(S, SS).min(1) for c in tl)
-        sup = tuple(c.reshape(S, SS).max(1) for c in tu)
-        return slo, sup, S
-
-    slo1, sup1, S1 = prep(tlo1, tup1)
-    slo2, sup2, S2 = prep(tlo2, tup2)
-
-    ovA = _overlap(slo1, sup1, slo2, sup2)
-    SP_cap = max(S1 * SUPERPAIRS_PER_SUPERTILE,
-                 S2 * SUPERPAIRS_PER_SUPERTILE, 64, P_cap // 64)
-    SP_cap = -(-SP_cap // 16) * 16
-    kA = jnp.arange(S1 * S2, dtype=jnp.int32)
-    spacked, nsp = _compact_flat(ovA.reshape(-1), kA, SP_cap)
-    overflow = nsp > SP_cap
-    si = spacked // S2
-    sj = spacked % S2
-
-    from ..ops.subtile import subtile_band_bits
-    bits = subtile_band_bits(
-        asub_lo, asub_up, tlo2, tup2, si, sj,
-        jnp.minimum(nsp, SP_cap).reshape(1).astype(jnp.int32),
-        Ta=T1, Tb=T2, triangle=False, n_bands=NB,
-        interpret=interpret)[:, :, :SS]
-
-    a_idx, run_idx, bm_grp, nsteps, num_checks, ov2 = _runs_from_bits(
-        bits, si, sj, SS, G, W, S_cap, R, pad_run, NB)
-    return a_idx, run_idx, bm_grp, nsteps, num_checks, overflow | ov2
-
 
 @partial(jax.jit, static_argnames=("capacity", "alg", "pair_capacity",
-                                   "narrow", "interpret"))
+                                   "narrow"))
 def traverse_tiles_pair_fixed(bvh1: BVH, bvh2: BVH, capacity: int, *,
                               alg: "TileTraversal" = None,
                               pair_capacity: Optional[int] = None,
-                              narrow=None,
-                              interpret: Optional[bool] = None):
+                              narrow=None):
     """Fully-traced fixed-capacity two-BVH tile traversal.
 
-    Returns ``(total, contacts, overflow, num_checks)``; contacts are tree-order
-    (index-in-bvh1, index-in-bvh2) pairs including symmetric and (i, i)
-    pairs — the reference's pair-traversal semantics
+    Returns ``(total, contacts, overflow, num_checks)``; contacts are
+    tree-order (index-in-bvh1, index-in-bvh2) pairs including symmetric and
+    (i, i) pairs — the reference's pair-traversal semantics
     (ref traverse_pair_cpu.jl:615-645).  Both BVHs must have the same leaf
     volume kind.
     """
-    from ..ops.tile_contact import tile_group_contacts
-
     alg = alg or TileTraversal()
-    G = alg.tile
-    if interpret is None:
-        interpret = _use_interpret()
+    G, NB = alg.tile, alg.bands
     if bvh1.leaf_kind is not bvh2.leaf_kind:
         raise NotImplementedError(
             "tile pair traversal requires matching leaf volume kinds")
-
-    NB = alg.bands
     f1, sphere, tlo1, tup1, asub_lo, asub_up, T1 = \
         _tiled_fields(bvh1, G, NB)
     f2, _, tlo2, tup2, _, _, T2 = _tiled_fields(bvh2, G)
-    if max(T1, T2) >= 1 << 16:
-        raise ValueError("tile count exceeds 65536; raise the tile size")
     if pair_capacity is None:
-        pair_capacity = _pair_capacity_for((T1 + T2) // 2)
-    W = alg.count_w
-    mask_kind = "sphere" if sphere else "box"
+        pair_capacity = _pair_capacity_for((T1 + T2) // 2, NB)
 
-    narrow_fn = None
-    if narrow is not None:
-        l1, l2 = bvh1.leaves, bvh2.leaves
-
-        def narrow_fn(gi, gj):
-            la = jax.tree_util.tree_map(lambda x: x[gi], l1)
-            lb = jax.tree_util.tree_map(lambda x: x[gj], l2)
-            return narrow(la, lb)
-
-    use_two_phase = alg.pair_cap <= 128 and capacity % 1024 == 0
-    if use_two_phase:
-        # two-phase run-block path, mirroring the self-contact branch
-        from ..ops.tile_contact import tile_group_emit, tile_run_counts
-        R = alg.run_r
-        S_cap, CHUNK = _step_caps(pair_capacity // W + T1)
-        ch_cap = _run_chunk_cap(W, R, NB)
-        if CHUNK > ch_cap:
-            CHUNK = ch_cap
-            S_cap = -(-S_cap // CHUNK) * CHUNK
-        pad_run = (-(-T2 // R) * R) // R
-        a_idx, run_idx, bm_grp, nsteps, num_checks, pair_overflow = \
-            _phase1_cross_runs(tlo1, tup1, asub_lo, asub_up, tlo2, tup2,
-                               G, pair_capacity, W, S_cap, R, pad_run, NB,
-                               interpret=interpret)
-        cnt_parts = []
-        for start in range(0, S_cap, CHUNK):
-            ns_c = jnp.clip(nsteps - start, 0, CHUNK)
-
-            def run_chunk(start=start, ns_c=ns_c):
-                return tile_run_counts(
-                    a_idx[start:start + CHUNK],
-                    run_idx[start * W:(start + CHUNK) * W],
-                    tuple(w[start * W:(start + CHUNK) * W]
-                          for w in bm_grp),
-                    ns_c.reshape(1).astype(jnp.int32), f1, f2,
-                    mask_kind=mask_kind, G=G, W=W, R=R, NB=NB,
-                    dedup=False, interpret=interpret, with_colmax=True)
-
-            cnt_parts.append(jax.lax.cond(
-                ns_c > 0, run_chunk,
-                lambda: (jnp.zeros((CHUNK * W * R,), jnp.int32),
-                         jnp.zeros((CHUNK * W * R,), jnp.int32))))
-        # barrier: see the self-contact branch — load-bearing
-        counts, colmax = jax.lax.optimization_barrier(
-            (jnp.concatenate([p[0] for p in cnt_parts]),
-             jnp.concatenate([p[1] for p in cnt_parts])))
-        slot_overflow = jnp.any(counts > alg.pair_cap)
-
-        W2 = alg.emit_w
-        S2_cap, CHUNK2 = _step_caps(T1 + capacity // (8 * W2))
-        E2_cap = max(4096, capacity // 8)
-        a_idx2, b_idx2, nsteps2, over2 = _regroup_emit_runs(
-            a_idx, run_idx, bm_grp, counts, W2, S2_cap, E2_cap, T2, R, NB,
-            colmax=colmax)
-        cap_overflow = (nsteps2 > S2_cap) | over2
-        parts = []
-        for start in range(0, S2_cap, CHUNK2):
-            ns_c = jnp.clip(nsteps2 - start, 0, CHUNK2)
-
-            def emit_chunk(start=start, ns_c=ns_c):
-                return tile_group_emit(
-                    a_idx2[start:start + CHUNK2],
-                    b_idx2[start * W2:(start + CHUNK2) * W2],
-                    ns_c.reshape(1).astype(jnp.int32), f1, f2,
-                    mask_kind=mask_kind, G=G, W=W2,
-                    ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
-                    dedup=False, CAP=capacity, interpret=interpret)
-
-            gi_c, gj_c, tot_c, flags_c = jax.lax.cond(
-                ns_c > 0, emit_chunk,
-                lambda: (jnp.zeros((capacity,), jnp.float32),
-                         jnp.zeros((capacity,), jnp.float32),
-                         jnp.zeros((), jnp.int32),
-                         jnp.zeros((), jnp.int32)))
-            parts.append((gi_c, gj_c, tot_c))
-            cap_overflow = cap_overflow | ((flags_c & 1) > 0)
-            slot_overflow = slot_overflow | ((flags_c & 2) > 0)
-        # barrier: the merge consumes each chunk's (gi, gj, total) through
-        # several chains (two gather operands + the prefix totals); without
-        # it XLA rematerializes the emit pipeline per chain — measured
-        # +110 ms at 100k rays (same lesson as the count-kernel barrier)
-        parts = jax.lax.optimization_barrier(parts)
-        gi_pos, gj_pos, total = _merge_streams(parts, capacity)
-        total, contacts = _finish_contacts(
-            gi_pos, gj_pos, total, bvh1.leaves.index, narrow_fn, capacity,
-            leaf_index_b=bvh2.leaves.index, sort_pairs=False)
-        overflow = (jnp.where(pair_overflow | cap_overflow
-                              | (total > capacity), 1, 0)
-                    | jnp.where(slot_overflow, 2, 0))
-        return total, contacts, overflow, num_checks
-
-    # pair-granularity fallback (large slot caps from the growth loop)
-    packed, band, npairs = _phase1_cross_pairs(
-        tlo1, tup1, asub_lo, asub_up, tlo2, tup2, G, pair_capacity)
-    pair_overflow = npairs > pair_capacity
-
-    # regroup by shared bvh1 tile for the grouped wide kernel, exactly as
-    # the self-contact path (shared a-tile DMA + banded mask skipping)
-    S_cap, CHUNK = _step_caps(pair_capacity // W + T1)
-    a_idx, b_idx, nsteps = _group_pairs(packed, band, npairs, W, S_cap, T2)
-    pair_overflow |= nsteps > S_cap
-
-    slot_parts, cnt_parts = [], []
-    slot_overflow = jnp.zeros((), jnp.bool_)
-    for start in range(0, S_cap, CHUNK):
-        ns_c = jnp.clip(nsteps - start, 0, CHUNK)
-        slots_c, cnt_c, ov_c = tile_group_contacts(
-            a_idx[start:start + CHUNK],
-            b_idx[start * W:(start + CHUNK) * W],
-            ns_c.reshape(1).astype(jnp.int32), f1, f2,
-            mask_kind="sphere" if sphere else "box", G=G, W=W,
-            ROW_CAP=alg.row_cap, CAP_PAIR=alg.pair_cap,
-            dedup=False, interpret=interpret)
-        slot_parts.append(slots_c)
-        cnt_parts.append(cnt_c)
-        slot_overflow = slot_overflow | ov_c
-    slots = jnp.concatenate(slot_parts, axis=0)
-    counts = jnp.concatenate(cnt_parts, axis=0)
-
-    total, contacts = _extract_contacts(
-        slots, counts, bvh1.leaves.index, narrow_fn, capacity,
+    si, sj, nsp, sp_over = _phase1_cross_superpairs(
+        tlo1, tup1, tlo2, tup2, pair_capacity)
+    bits = subtile_band_bits(asub_lo, asub_up, tlo2, tup2, si, sj, nsp,
+                             Ta=T1, Tb=T2, triangle=False, n_bands=NB)
+    ea, eb, ne = _entries_from_bits(bits, si, sj, NB, pair_capacity)
+    gi, gj, raw_total = _band_contacts(
+        f1, f2, ea, eb, ne, "sphere" if sphere else "box", NB,
+        dedup=False, capacity=capacity)
+    total, contacts = _finish_contacts(
+        gi, gj, raw_total, bvh1.leaves.index,
+        _leaf_narrow(narrow, bvh1.leaves, bvh2.leaves), capacity,
         leaf_index_b=bvh2.leaves.index, sort_pairs=False)
-    # bitmask: bit 0 = a buffer capacity (pair list / contact list) was
-    # exceeded (grow capacities), bit 1 = a kernel slot cap was exceeded
-    # (grow row_cap/pair_cap) — the wrappers grow only what overflowed
-    overflow = (jnp.where(pair_overflow | (total > capacity), 1, 0)
-                | jnp.where(slot_overflow, 2, 0))
-    from ..ops.tile_contact import N_BANDS
-    lanep = jnp.arange(band.shape[0], dtype=jnp.int32)
-    num_checks = jnp.sum(
-        jnp.where(lanep < npairs, jax.lax.population_count(band), 0)
-    ).astype(jnp.float32) * ((G // N_BANDS) * G)
+    overflow = _overflow_bits(raw_total > capacity,
+                              sp_over | (ne > pair_capacity))
+    num_checks = ne.astype(jnp.float32) * ((G // NB) * G)
     return total, contacts, overflow, num_checks
 
 
@@ -1510,39 +468,28 @@ def traverse_tiles_pair(bvh1: BVH, bvh2: BVH, *, alg: "TileTraversal" = None,
                         ) -> BVHTraversal:
     """Host wrapper with overflow-driven capacity growth (two-BVH)."""
     alg = alg or TileTraversal()
-    alg = _merge_cached_alg(alg, cache)
     idt = bvh1.skips.dtype
-    if cache is not None and cache.cache1.ndim == 2 \
-            and cache.cache1.shape[0] > 0:
-        capacity = cache.cache1.shape[0]
-    else:
-        capacity = max(options.min_capacity,
-                       2 * max(bvh1.num_leaves, bvh2.num_leaves))
-        capacity = 1 << math.ceil(math.log2(capacity))
+    capacity = _initial_capacity(2 * max(bvh1.num_leaves, bvh2.num_leaves),
+                                 options, cache)
     if cache is not None and cache.pair_capacity > 0:
         pair_capacity = cache.pair_capacity
     else:
         T = (-(-bvh1.num_leaves // alg.tile)) + \
             (-(-bvh2.num_leaves // alg.tile))
-        pair_capacity = _pair_capacity_for(T // 2)
-    for _ in range(8):
-        total, contacts, overflow, num_checks = traverse_tiles_pair_fixed(
-            bvh1, bvh2, capacity, alg=alg, pair_capacity=pair_capacity,
-            narrow=narrow)
-        ov = int(overflow)
-        if ov == 0:
-            return BVHTraversal(num_contacts=int(total), cache1=contacts,
-                                cache2=jnp.zeros((0,), idt), start_level1=1,
-                                start_level2=1, num_checks=int(num_checks),
-                                pair_capacity=pair_capacity,
-                                tile_alg=alg)
-        if ov & 1:
-            capacity = _grow_capacity(capacity, options.capacity_growth)
-            pair_capacity = _grow_capacity(
-                pair_capacity, options.capacity_growth, 8192)
-        if ov & 2:
-            alg = _grow_alg(alg)
-    from .api import traverse as _traverse
-    from .types import LVTTraversal
-    return _traverse(bvh1, bvh2, LVTTraversal(), narrow=narrow,
-                     options=options)
+        pair_capacity = _pair_capacity_for(T // 2, alg.bands)
+
+    def run(cap, pcap):
+        return traverse_tiles_pair_fixed(bvh1, bvh2, cap, alg=alg,
+                                         pair_capacity=pcap, narrow=narrow)
+
+    done = _grow_loop(run, capacity, pair_capacity, options)
+    if done is None:
+        from .api import traverse as _traverse
+        from .types import LVTTraversal
+        return _traverse(bvh1, bvh2, LVTTraversal(), narrow=narrow,
+                         options=options)
+    total, contacts, num_checks, pair_capacity = done
+    return BVHTraversal(num_contacts=int(total), cache1=contacts,
+                        cache2=jnp.zeros((0,), idt), start_level1=1,
+                        start_level2=1, num_checks=int(num_checks),
+                        pair_capacity=pair_capacity, tile_alg=alg)

@@ -1,6 +1,6 @@
 """Traversal result and algorithm types.
 
-TPU-native counterpart of /root/reference/src/traverse/traverse.jl:1-107.
+Counterpart of /root/reference/src/traverse/traverse.jl:1-107.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ class BFSTraversal(TraversalAlgorithm):
     """Simultaneous breadth-first (level-synchronous BVTT) traversal.
 
     Theoretical-minimum contact checks, higher peak memory (ref
-    traverse.jl:19-24).  On TPU: static-capacity frontier buffers with
+    traverse.jl:19-24).  Here: static-capacity frontier buffers with
     deterministic cumsum/scatter stream compaction per level.
     """
 
@@ -29,7 +29,7 @@ class BFSTraversal(TraversalAlgorithm):
 class LVTTraversal(TraversalAlgorithm):
     """Leaf-vs-tree traversal — the default (ref traverse.jl:26-34).
 
-    On TPU: a manually-vectorized *stackless* walk (trailing-ones climb
+    Here: a manually-vectorized *stackless* walk (trailing-ones climb
     instead of the reference's 32-deep per-thread stack) over all leaves in
     lockstep, with the two-pass count -> scan -> write output scheme.
     """

@@ -1,6 +1,6 @@
-"""Stackless leaf-vs-tree walk engine — the TPU traversal core.
+"""Stackless leaf-vs-tree walk engine — the LVT traversal core.
 
-TPU-native replacement for the reference's per-thread stack walk
+Vectorized replacement for the reference's per-thread stack walk
 (/root/reference/src/traverse/leaf_vs_tree/traverse_single.jl:136-208 and
 raytrace counterpart).  Instead of a 32-deep ``SimpleMVector`` stack per
 work-item, every lane carries only its current implicit node index and

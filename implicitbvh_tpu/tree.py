@@ -1,6 +1,6 @@
 """Implicit binary tree index algebra.
 
-TPU-native counterpart of the reference's ``ImplicitTree``
+Counterpart of the reference's ``ImplicitTree``
 (/root/reference/src/implicit_tree.jl:52-199).
 
 Key design departure from the reference: because array shapes are jit-static

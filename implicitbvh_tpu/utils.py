@@ -1,19 +1,36 @@
-"""Scalar/integer math utilities.
+"""Scalar/integer math utilities and the compile-cache setting.
 
-TPU-native counterparts of the reference's utility layer
+Counterparts of the reference's utility layer
 (/root/reference/src/utils.jl:98-275): integer log2, power-of-two helpers,
 child-index arithmetic for BVTT sprouting, and upper-triangle pair unranking.
 
 Everything comes in two flavours where needed:
 
 - ``*_static``: pure-Python integer math, used for jit-static tree-shape
-  computation (tree shapes are compile-time constants on TPU).
-- traced versions operating on ``jnp`` integer arrays, used inside kernels.
+  computation (tree shapes are compile-time constants under jit).
+- traced versions operating on ``jnp`` integer arrays.
 """
 
 from __future__ import annotations
 
+import os
+
+import jax
 import jax.numpy as jnp
+
+
+def use_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at
+    ``JAX_COMPILATION_CACHE_DIR`` when that is set, else at ``.jax_cache/``
+    in the checkout (a fixed path: the path is part of the cache key).
+    Called by every entry point (bench.py, chip_smoke.py,
+    __graft_entry__.py, the test suite); nothing else sets a cache path.
+    Returns the directory."""
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 # --------------------------------------------------------------------------
@@ -106,7 +123,7 @@ def noopright(i1, i2):
 
 
 # NOTE: the 3D scalar math (dot3/dist3sq/dist3, ref src/utils.jl:160-181)
-# lives in volumes.py in coordinate-tuple SoA form — the TPU layout every
+# lives in volumes.py in coordinate-tuple SoA form — the layout every
 # consumer uses.  No (..., 3)-array variants are kept here.
 
 
@@ -122,8 +139,8 @@ def _block_search(s_before, n_blocks, k):
     vectorized binary search (31 fixed steps).
 
     The reference uses a Float32 quadratic guess plus an unbounded integer
-    correction loop (src/utils.jl:202-275); on TPU unbounded scalar loops are
-    hostile to the vector unit, and the f32 guess can be off by thousands near
+    correction loop (src/utils.jl:202-275); under jit an unbounded loop
+    serializes the whole vector, and the f32 guess can be off by thousands near
     the diagonal due to catastrophic cancellation, so a fixed-depth binary
     search is both safer and vector-friendly.
     """

@@ -1,16 +1,14 @@
 """Bounding volumes: coordinate-tuple SoA bounding spheres and boxes.
 
-TPU-native counterpart of the reference geometry core
+Counterpart of the reference geometry core
 (/root/reference/src/bounding_volumes/): ``BSphere``/``BBox`` structs,
 triangle constructors, the merge monoid, overlap predicates and ray
 intersection tests.
 
-Layout rationale (the key TPU design decision): the reference stores AoS
-``Vector{BSphere{T}}``; a naive SoA port would use ``(N, 3)`` coordinate
-arrays — but XLA:TPU tiles the two minor dimensions to (8, 128), so an
-``(N, 3)`` f32 array pads its lane dimension 3 -> 128 and costs **42x** the
-useful HBM bandwidth.  Volumes therefore store each coordinate as its own
-``(N,)`` array (a 3-tuple), which tiles perfectly.  Public constructors
+Layout rationale: the reference stores AoS ``Vector{BSphere{T}}``; here
+each coordinate is its own ``(N,)`` array (a 3-tuple), so every field is a
+contiguous, unit-stride vector that XLA fuses and gathers without
+relayouts (an ``(N, 3)`` array would interleave the axes).  Public constructors
 still accept ``(N, 3)`` arrays and ``.x``/``.lo``/``.up`` properties
 re-stack for convenience; all internal math is per-coordinate.
 """

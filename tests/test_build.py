@@ -127,7 +127,7 @@ def test_build_morton_dtypes():
 
 
 def test_options_reference_compat_kwargs():
-    # reference-style threading knobs are accepted (and ignored on TPU)
+    # reference-style threading knobs are accepted (and ignored)
     opts = ib.BVHOptions(num_threads=4, min_mortons_per_thread=50,
                          min_sorts_per_thread=50, min_boundings_per_thread=50,
                          min_traversals_per_thread=50)

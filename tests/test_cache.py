@@ -52,52 +52,47 @@ def test_lvt_cache_reuse_zero_recompiles():
 
 
 def test_tile_cache_reuse_zero_recompiles():
-    # vol1 is dense enough to force one slot-cap growth (its grown caps are
-    # then carried in the cache), vol2 is sparse with the same shapes
-    vol1 = _spheres(70, 2, r=0.38)
+    # vol1 is dense enough to force one contact-capacity growth (its grown
+    # capacity is then carried in the cache), vol2 is sparse with the same
+    # shapes
+    vol1 = _spheres(70, 2, r=0.6)
     vol2 = _spheres(70, 3, r=0.15)
     alg = TileTraversal()
     t1 = traverse(ib.build(vol1, ib.BBox), alg)
-    assert t1.tile_alg is not None and t1.tile_alg.pair_cap > alg.pair_cap
+    assert t1.cache1.shape[0] > 128          # grown from max(64, 70) -> 128
     size0 = traverse_tiles_fixed._cache_size()
     t2 = traverse(ib.build(vol2, ib.BBox), alg, cache=t1)
     assert traverse_tiles_fixed._cache_size() == size0
     assert t2.pair_capacity == t1.pair_capacity
+    assert t2.cache1.shape[0] == t1.cache1.shape[0]
     assert sorted(map(tuple, t2.contacts_list())) == _brute(vol2)
 
 
 def test_tile_knobs_round_trip_growth_and_merge():
-    """Every TileTraversal knob must survive slot-cap growth and the
-    cache-merge path — round 3 shipped a _grow_alg/_merge_cached_alg pair
-    that silently reset a user's ``count_w`` to the default after any
-    overflow growth or ``cache=`` merge, which made knob sweeps lie."""
+    """Every TileTraversal knob must survive capacity growth and
+    ``cache=`` reuse: the result records the configuration that produced
+    it, and a cached rerun keeps the user's knobs and capacities."""
     import dataclasses
-    from implicitbvh_tpu.traverse.tiles import _grow_alg, _merge_cached_alg
 
-    alg = TileTraversal(row_cap=2, pair_cap=16, run_r=16, count_w=16,
-                        emit_w=8, bands=8)
-    grown = _grow_alg(alg)
+    alg = TileTraversal(tile=32, bands=8)
+    vol = _spheres(70, 2, r=0.6)
+    t1 = traverse(ib.build(vol, ib.BBox), alg)
+    assert t1.cache1.shape[0] > 128           # growth happened
     for f in dataclasses.fields(TileTraversal):
-        if f.name in ("row_cap", "pair_cap"):
-            assert getattr(grown, f.name) > getattr(alg, f.name)
-        else:
-            assert getattr(grown, f.name) == getattr(alg, f.name), f.name
-
-    class _FakeCache:
-        tile_alg = grown
-    merged = _merge_cached_alg(alg, _FakeCache())
-    for f in dataclasses.fields(TileTraversal):
-        if f.name in ("row_cap", "pair_cap"):
-            assert getattr(merged, f.name) == getattr(grown, f.name), f.name
-        else:
-            assert getattr(merged, f.name) == getattr(alg, f.name), f.name
+        assert getattr(t1.tile_alg, f.name) == getattr(alg, f.name), f.name
+    t2 = traverse(ib.build(vol, ib.BBox), alg, cache=t1)
+    assert t2.tile_alg == alg
+    assert t2.cache1.shape == t1.cache1.shape
+    assert sorted(map(tuple, t2.contacts_list())) == _brute(vol)
 
 
 def test_tile_density_fallback():
-    """A scene so dense that one 128x128-leaf block exceeds the VMEM-bounded
-    slot caps must still produce the exact contact set (LVT fallback)."""
+    """A scene where ~every pair is in contact (one tile pair holding
+    thousands of contacts) must produce the exact contact set: the emit
+    pass has no per-pair slot caps."""
     vol = _spheres(70, 2, r=1.2)       # ~all 2415 pairs in contact
     t = traverse(ib.build(vol, ib.BBox), TileTraversal())
+    assert isinstance(t.tile_alg, TileTraversal)
     assert sorted(map(tuple, t.contacts_list())) == _brute(vol)
 
 

@@ -78,7 +78,7 @@ def test_u64_pair_and_u16():
     hl = morton_encode_extended(vol, ExtendedMortonAlgorithm(bits=64))
     if jax.config.jax_enable_x64:       # conftest enables x64 on CPU
         assert hl.dtype == jnp.uint64
-    else:                               # TPU: (hi, lo) uint32 pair
+    else:                               # no x64: (hi, lo) uint32 pair
         assert isinstance(hl, tuple) and hl[0].dtype == jnp.uint32
     c16 = morton_encode_extended(vol, ExtendedMortonAlgorithm(bits=16))
     assert c16.dtype == jnp.uint16

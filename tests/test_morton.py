@@ -74,7 +74,7 @@ def test_encode_single_volume():
 
 
 def test_u64_hi_lo_fallback_matches_native():
-    # the TPU-friendly (hi, lo) packing must agree with native u64 encoding
+    # the no-x64 (hi, lo) packing must agree with native u64 encoding
     import jax
     from implicitbvh_tpu.morton import _split3_21bit_hi_lo, morton_split3_u64
     rng = np.random.default_rng(3)

@@ -1,5 +1,4 @@
-"""Ray tile fast path: differential tests vs the LVT walk / brute force
-(Pallas kernel in interpret mode on CPU)."""
+"""Ray tile engine: differential tests vs the LVT walk / brute force."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -100,11 +99,9 @@ def test_ray_tiles_fixed_overflow_flag():
     total, contacts, overflow, _nc = traverse_rays_tiles_fixed(bvh, p, d, 4)
     if int(total) > 4:
         assert bool(overflow)
-    # dense scene: raise the per-pair slot caps so only the output capacity
-    # matters, then check exact parity of the valid prefix
-    big = TileTraversal(row_cap=64, pair_cap=2048)
+    # dense scene with ample capacity: exact parity of the valid prefix
     total2, contacts2, overflow2, _nc2 = traverse_rays_tiles_fixed(
-        bvh, p, d, 1 << 12, alg=big)
+        bvh, p, d, 1 << 12)
     assert not bool(overflow2)
     ref = contacts_set(traverse_rays(bvh, p, d))
     got = {tuple(map(int, r)) for r in np.asarray(contacts2[:int(total2)])}
@@ -121,8 +118,8 @@ def test_ray_tiles_more_rays_than_leaves():
 
 
 def test_ray_tiles_fine_bands():
-    """bands=16 on the two-phase ray path must match the walk exactly
-    (finer ray sub-bands only shrink the tested superset)."""
+    """bands=16 on the ray tile path must match the walk exactly (finer
+    ray bands only shrink the tested superset)."""
     from implicitbvh_tpu.traverse.ray_tiles import traverse_rays_tiles_fixed
     from implicitbvh_tpu.raytrace import traverse_rays_fixed
     rng = np.random.default_rng(21)
@@ -136,7 +133,7 @@ def test_ray_tiles_fine_bands():
     d = jnp.asarray((rng.random((3, nrays)) - 0.5).astype(np.float32))
     wt, wc = traverse_rays_fixed(bvh, p, d, capacity=4096)
     walk = {tuple(map(int, r)) for r in np.asarray(wc)[:int(wt)]}
-    alg = TileTraversal(tile=32, row_cap=16, pair_cap=128, bands=16)
+    alg = TileTraversal(tile=32, bands=16)
     total, contacts, ov, _nc = traverse_rays_tiles_fixed(
         bvh, p, d, capacity=1024, alg=alg)
     assert int(ov) == 0

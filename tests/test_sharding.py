@@ -48,9 +48,8 @@ def test_sharded_self_contact_matches_single(mesh):
 
 
 def test_sharded_tile_self_contact_matches_single(mesh):
-    """The production multi-chip path: kernel steps sharded over the mesh,
-    banded Pallas kernel per device, contact set identical to brute force
-    and to the single-device tile engine."""
+    """The multi-device tile path: superpairs dealt over the mesh, the
+    whole tile pipeline per device; contact set identical to brute force."""
     from implicitbvh_tpu.traverse import TileTraversal
     xs, rs, sp = spheres(300, 7)
     bf = brute_force(xs, rs)
@@ -73,15 +72,14 @@ def test_sharded_tile_self_contact_matches_single(mesh):
 def test_sharded_tile_phase1_spreads_across_devices(mesh):
     """Phase 1 is per-device (superpairs dealt round-robin), so a scene
     with several live supertile pairs must produce contacts on more than
-    one device — round 3 ran phase 1 replicated and split only the kernel
-    steps, capping 8-chip scaling at ~3.4x by Amdahl."""
+    one device."""
     from implicitbvh_tpu.traverse import TileTraversal
     xs, rs, sp = spheres(2048, 11, scale=16.0)
     bf = brute_force(xs, rs)
     bvh = ib.build(sp, ib.BBox)
     total, out, counts, overflow = sharded_tile_self_contact(
         mesh, bvh, capacity_per_device=2048,
-        alg=TileTraversal(tile=32, row_cap=8, pair_cap=64))
+        alg=TileTraversal(tile=32))
     assert not bool(overflow)
     assert int(total) == len(bf)
     cnts = np.asarray(counts)
@@ -96,9 +94,8 @@ def test_sharded_tile_phase1_spreads_across_devices(mesh):
 
 @pytest.mark.parametrize("engine", ["tiles", "walk"])
 def test_sharded_rays_matches_single(mesh, engine):
-    """Both ray engines: the production per-device ray-tile pipeline
-    (coherence sort + two-phase run kernels per ray slice) and the
-    any-density stackless-walk fallback."""
+    """Both ray engines: the per-device ray-tile pipeline (coherence sort
+    + count/emit passes per ray slice) and the stackless walk."""
     rng = np.random.default_rng(1)
     xs, rs, sp = spheres(64, 2)
     p = (rng.random((3, 16)).astype(np.float32) * 8 - 1.5)
@@ -120,7 +117,7 @@ def test_sharded_full_step(mesh):
     bf = brute_force(xs, rs)
     step = sharded_rebuild_traverse_step(
         mesh, capacity_per_device=256,
-        alg=TileTraversal(tile=32, row_cap=8, pair_cap=64))
+        alg=TileTraversal(tile=32))
     total, out, counts, overflow = step(sp.x, sp.r)
     assert int(total) == len(bf)
     assert not bool(overflow)
@@ -132,8 +129,8 @@ def test_sharded_full_step(mesh):
 
 
 def test_sharded_tile_pair_matches_single(mesh):
-    """Two-BVH pair traversal sharded over the mesh (superpair-sliced
-    cross-runs): cross-device contact set equals brute force and the
+    """Two-BVH pair traversal sharded over the mesh (superpairs dealt to
+    devices): cross-device contact set equals brute force and the
     single-device tile engine's."""
     from implicitbvh_tpu.parallel import sharded_tile_pair
     from implicitbvh_tpu.traverse import TileTraversal, traverse_tiles_pair
@@ -146,7 +143,7 @@ def test_sharded_tile_pair_matches_single(mesh):
     rr = (rs1[:, None] + rs2[None, :]) ** 2
     bf = {(i + 1, j + 1) for i in range(300) for j in range(200)
           if d2[i, j] <= rr[i, j]}
-    alg = TileTraversal(tile=32, row_cap=8, pair_cap=64)
+    alg = TileTraversal(tile=32)
     single = traverse_tiles_pair(bvh1, bvh2, alg=alg)
     assert set(single.contacts_list()) == bf
     total, out, counts, overflow = sharded_tile_pair(
@@ -175,7 +172,7 @@ def test_sharded_tile_self_contact_at_scale(mesh):
     n = 1 << 15
     xs, rs, sp = spheres(n, 33, scale=float(n) ** (1.0 / 3.0))
     bvh = ib.build(sp, ib.BBox)
-    alg = TileTraversal(row_cap=8, pair_cap=64)
+    alg = TileTraversal()
     single = traverse_tiles(bvh, alg=alg)
     ref = set(single.contacts_list())
     total, out, counts, overflow = sharded_tile_self_contact(

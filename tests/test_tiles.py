@@ -1,7 +1,5 @@
-"""Tile traversal tests (Pallas kernel in interpret mode on CPU).
-
-Differential vs brute force and vs LVT; growth-loop coverage.
-"""
+"""Tile traversal tests: differential vs brute force and vs LVT;
+growth-loop coverage."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -82,25 +80,28 @@ def test_tiles_narrow_predicate():
 
 
 def test_tiles_overflow_growth():
-    # dense cluster: many contacts per tile pair forces row/pair cap growth
+    # dense cluster with tiny starting capacities: both the contact buffer
+    # and the candidate entry list overflow and must grow to the exact set
+    from implicitbvh_tpu.traverse.types import BVHTraversal
     xs, rs, sp = spheres(96, 5, scale=0.8)
     bf = brute_force(xs, rs)
     bvh = ib.build(sp, ib.BBox)
-    t = traverse_tiles(bvh, alg=TileTraversal(tile=32, row_cap=2, pair_cap=4))
+    tiny = BVHTraversal(num_contacts=0, cache1=jnp.zeros((64, 2), jnp.int32),
+                        cache2=jnp.zeros((0,), jnp.int32), pair_capacity=8)
+    t = traverse_tiles(bvh, alg=TileTraversal(tile=32), cache=tiny)
     assert set(t.contacts_list()) == bf
+    assert t.cache1.shape[0] >= len(bf) > 64
+    assert t.pair_capacity > 8
 
 
 def test_tiles_stream_output_path():
-    """The streamed kernel (dense in-kernel cursor output) engages when
-    capacity is a multiple of the 1024-contact flush quantum; its contact
-    set must match brute force exactly, including with a narrow filter."""
+    """The fixed-capacity program's dense contact stream must match brute
+    force exactly, including with a narrow filter."""
     from implicitbvh_tpu.traverse.tiles import traverse_tiles_fixed
     xs, rs, sp = spheres(300, 11)
     bf = brute_force(xs, rs)
     bvh = ib.build(sp, ib.BBox)
-    # row_cap=4 genuinely overflows on this scene at tile=32 (both kernel
-    # variants agree); the wrapper would grow it — here pick ample caps
-    alg = TileTraversal(tile=32, row_cap=16, pair_cap=128)
+    alg = TileTraversal(tile=32)
     total, contacts, ov, _nc = traverse_tiles_fixed(bvh, 1024, alg=alg)
     assert int(ov) == 0
     got = {tuple(map(int, r)) for r in np.asarray(contacts)[:int(total)]}
@@ -144,36 +145,38 @@ def test_tiles_pair_differential():
 
 
 def test_tiles_two_phase_r16():
-    """run_r=16 (two band words per aligned run) must match brute force
-    exactly on the two-phase self-contact path."""
+    """A 16-leaf tile (bands of 4 leaves) must match brute force exactly
+    through the count and emit passes."""
     from implicitbvh_tpu.traverse.tiles import traverse_tiles_fixed
     xs, rs, sp = spheres(300, 11)
     bf = brute_force(xs, rs)
     bvh = ib.build(sp, ib.BBox)
-    alg = TileTraversal(tile=32, row_cap=16, pair_cap=128, run_r=16)
+    alg = TileTraversal(tile=16)
     total, contacts, ov, _nc = traverse_tiles_fixed(bvh, 1024, alg=alg)
     assert int(ov) == 0
     got = {tuple(map(int, r)) for r in np.asarray(contacts)[:int(total)]}
     assert got == bf
 
 
-def test_tiles_two_phase_count_w16():
-    """count_w=16 (16 run slots per count-kernel step sharing one a-tile
-    DMA) must match brute force exactly on the two-phase path."""
-    from implicitbvh_tpu.traverse.tiles import traverse_tiles_fixed
+def test_tiles_two_phase_count_w16(monkeypatch):
+    """A count-pass chunk of 16 entries (many loop steps, a partial last
+    chunk) must match brute force exactly."""
+    from implicitbvh_tpu.traverse import tiles
+    monkeypatch.setattr(tiles, "ENTRY_CHUNK", 16)
     xs, rs, sp = spheres(300, 12)
     bf = brute_force(xs, rs)
     bvh = ib.build(sp, ib.BBox)
-    alg = TileTraversal(tile=32, row_cap=16, pair_cap=128, count_w=16)
-    total, contacts, ov, _nc = traverse_tiles_fixed(bvh, 1024, alg=alg)
+    alg = TileTraversal(tile=32)
+    # a capacity no other test compiles, so the patched chunk is traced
+    total, contacts, ov, _nc = tiles.traverse_tiles_fixed(bvh, 1016,
+                                                          alg=alg)
     assert int(ov) == 0
     got = {tuple(map(int, r)) for r in np.asarray(contacts)[:int(total)]}
     assert got == bf
 
 
 def test_tiles_pair_two_phase_path():
-    """The two-phase run path for two-BVH traversal (count kernel -> emit
-    stream; engages when capacity % 1024 == 0 and pair_cap <= 128) must
+    """The fixed-capacity two-BVH program (count pass -> emit stream) must
     match brute force exactly, including the narrow filter."""
     from implicitbvh_tpu.traverse.tiles import traverse_tiles_pair_fixed
     xs1, rs1, sp1 = spheres(150, 41)
@@ -184,7 +187,7 @@ def test_tiles_pair_two_phase_path():
           if d2[i, j] <= rr[i, j]}
     b1 = ib.build(sp1, ib.BBox)
     b2 = ib.build(sp2, ib.BBox)
-    alg = TileTraversal(tile=32, row_cap=16, pair_cap=128)
+    alg = TileTraversal(tile=32)
     total, contacts, ov, _nc = traverse_tiles_pair_fixed(b1, b2, 1024,
                                                          alg=alg)
     assert int(ov) == 0
@@ -216,45 +219,10 @@ def test_tiles_pair_narrow():
     assert sorted(t.contacts_list()) == sorted(t_lvt.contacts_list())
 
 
-def test_kernel_decode_high_tile_index():
-    """Packed (ti << 16 | tj) decodes with ti >= 32768 must mask after the
-    arithmetic shift (int32 sign extension would corrupt the block index)."""
-    import jax
-    import jax.numpy as jnp
-    from implicitbvh_tpu.ops.tile_contact import tile_pair_contacts
-
-    G = 128
-    ti, tj = 32768, 32769
-    T = 32770
-    # all tiles at huge offsets except the two under test: tile ti leaf k at
-    # (k, 0, 0), tile tj leaf k at (k, 0.05, 0), r = 0.1 -> diagonal contacts
-    x0 = jnp.zeros((T, G), jnp.float32).at[ti].set(jnp.arange(G, dtype=jnp.float32))
-    x0 = x0.at[tj].set(jnp.arange(G, dtype=jnp.float32))
-    x1 = jnp.full((T, G), 1e6, jnp.float32).at[ti].set(0.0).at[tj].set(0.05)
-    x2 = jnp.zeros((T, G), jnp.float32)
-    r = jnp.full((T, G), 0.1, jnp.float32)
-    pk = (ti << 16) | tj
-    pk = pk - (1 << 32) if pk >= (1 << 31) else pk  # int32 wraparound
-    packed = jnp.zeros((8,), jnp.int32).at[0].set(pk)
-    slots, counts, over = tile_pair_contacts(
-        packed, jnp.ones((1,), jnp.int32), (x0, x1, x2, r),
-        mask_kind="sphere", G=G, ROW_CAP=2, CAP_PAIR=G,
-        dedup=False, interpret=True)
-    assert int(counts[0]) == G
-    assert not bool(over)
-    # packed row: gi at [0, CAP), gj at [seg, seg+CAP) (ops _seg layout)
-    from implicitbvh_tpu.ops.tile_contact import _seg
-    seg = _seg(G)
-    gis = sorted(int(v) for v in slots[0][:G])
-    gjs = sorted(int(v) for v in slots[0][seg:seg + G])
-    assert gis == [ti * G + k for k in range(G)]
-    assert gjs == [tj * G + k for k in range(G)]
-
-
 def test_tiles_fine_bands_self_and_pair():
-    """bands=8/16 (finer phase-1b sub-band masks; ops/subtile.py) must not
+    """bands=8/16 (finer phase-1b sub-bands; ops/subtile.py) must not
     change any contact set — band boxes cover all leaves, so finer bands
-    only shrink the tested superset (conservative, like the tile pass)."""
+    only shrink the tested superset."""
     from implicitbvh_tpu.traverse.tiles import (traverse_tiles_fixed,
                                                 traverse_tiles_pair_fixed)
     xs, rs, sp = spheres(300, 12)
@@ -262,7 +230,7 @@ def test_tiles_fine_bands_self_and_pair():
     bvh = ib.build(sp, ib.BBox)
     checks = {}
     for nb in (8, 16):
-        alg = TileTraversal(tile=32, row_cap=16, pair_cap=128, bands=nb)
+        alg = TileTraversal(tile=32, bands=nb)
         total, contacts, ov, nc = traverse_tiles_fixed(bvh, 1024, alg=alg)
         assert int(ov) == 0
         got = {tuple(map(int, r)) for r in np.asarray(contacts)[:int(total)]}
@@ -277,7 +245,7 @@ def test_tiles_fine_bands_self_and_pair():
     bf2 = {(i + 1, j + 1) for i in range(300) for j in range(90)
            if d2[i, j] <= rr[i, j]}
     b2 = ib.build(sp2, ib.BBox)
-    alg = TileTraversal(tile=32, row_cap=16, pair_cap=128, bands=16)
+    alg = TileTraversal(tile=32, bands=16)
     total, contacts, ov, _nc = traverse_tiles_pair_fixed(bvh, b2, 1024,
                                                          alg=alg)
     assert int(ov) == 0
@@ -286,24 +254,23 @@ def test_tiles_fine_bands_self_and_pair():
 
 
 def test_tiles_moment_decode_route():
-    """decode_k > 0 routes low-count colmax<=2 pairs through the pure-XLA
-    moment decode (_moment_decode) instead of the emit kernel; the contact
-    set must be identical to brute force and to the default route.  Dense
-    radii make sure high-count pairs remain for the emit kernel so the
-    stream merge of both routes is exercised."""
-    xs, rs, sp = spheres(700, 21, scale=8.0)
+    """A dense scene (rows with many contacts, whole tile pairs in
+    contact) must emit exactly the brute-force set, with coarse and fine
+    bands alike."""
+    xs, rs, sp = spheres(700, 21, scale=3.0)
     bf = brute_force(xs, rs)
     bvh = ib.build(sp, ib.BBox)
-    t_dec = traverse_tiles(bvh, alg=TileTraversal(tile=32, decode_k=4))
-    assert set(t_dec.contacts_list()) == bf
-    t_ref = traverse_tiles(bvh, alg=TileTraversal(tile=32))
-    assert sorted(t_dec.contacts_list()) == sorted(t_ref.contacts_list())
+    t4 = traverse_tiles(bvh, alg=TileTraversal(tile=32))
+    assert set(t4.contacts_list()) == bf
+    t16 = traverse_tiles(bvh, alg=TileTraversal(tile=32, bands=16))
+    assert sorted(t16.contacts_list()) == sorted(t4.contacts_list())
+    assert t16.num_checks <= t4.num_checks
 
 
 def test_tiles_moment_decode_narrow():
-    """The narrow predicate applies to decode-route contacts too (it runs
-    in _finish_contacts, downstream of both routes)."""
-    xs, rs, sp = spheres(150, 23)
+    """The narrow predicate applies after the emit pass, also to rows
+    holding many contacts."""
+    xs, rs, sp = spheres(150, 23, scale=2.0)
     bf = brute_force(xs, rs)
     bf_n = {(i, j) for (i, j) in bf if (i + j) % 2 == 0}
 
@@ -311,52 +278,5 @@ def test_tiles_moment_decode_narrow():
         return (l1.index + l2.index) % 2 == 0
 
     bvh = ib.build(sp, ib.BBox)
-    t = traverse_tiles(bvh, alg=TileTraversal(tile=32, decode_k=8),
-                       narrow=narrow)
+    t = traverse_tiles(bvh, alg=TileTraversal(tile=32), narrow=narrow)
     assert set(t.contacts_list()) == bf_n
-
-
-def test_moment_decode_chunked_words():
-    """_moment_decode accepts the count kernel's per-chunk word planes
-    (avoiding a full-plane concat copy at scale) and must produce the
-    identical stream to the single concatenated plane."""
-    from implicitbvh_tpu.traverse.tiles import _moment_decode
-    rng = np.random.default_rng(7)
-    S, D, G, K, cap = 96, 16, 128, 4, 64
-    # synthetic decode words: cc in 1..2, is = i1+i2, iq = i1^2+i2^2
-    i1 = rng.integers(0, G, (S, 128))
-    i2 = np.minimum(i1 + rng.integers(0, 4, (S, 128)), G - 1)
-    cc = rng.integers(0, 3, (S, 128))
-    cc = np.where(rng.random((S, 128)) < 0.9, 0, cc)  # mostly dead cols
-    isv = np.where(cc == 2, i1 + i2, np.where(cc == 1, i1, 0))
-    iqv = np.where(cc == 2, i1 * i1 + i2 * i2,
-                   np.where(cc == 1, i1 * i1, 0))
-    words = jnp.asarray((cc << 23) | (isv << 15) | iqv, jnp.int32)
-    # pick pairs whose live-column count fits K and cap
-    cnt = np.minimum(cc, 2).sum(axis=1)
-    live_cols = (cc > 0).sum(axis=1)
-    ok = np.where((cnt >= 1) & (live_cols <= K))[0][:D]
-    ndec = len(ok)
-    dec_flat = np.zeros(D, np.int32)
-    dec_cnt = np.zeros(D, np.int32)
-    dec_pk = np.zeros(D, np.int32)
-    dec_flat[:ndec] = ok
-    dec_cnt[:ndec] = cnt[ok]
-    dec_pk[:ndec] = (np.arange(ndec) << 16) | (ndec - np.arange(ndec))
-    args = (jnp.asarray(dec_pk), jnp.asarray(dec_flat),
-            jnp.asarray(dec_cnt), jnp.asarray(np.int32(ndec)), G, K, cap)
-    gi1, gj1, tot1 = _moment_decode(words, *args)
-    # 3 chunks of 32: len*D_cap*21 >= S_flat -> the concat branch
-    gi2, gj2, tot2 = _moment_decode(
-        (words[:32], words[32:64], words[64:]), *args)
-    assert int(tot1) == int(tot2) == int(cnt[ok].sum())
-    np.testing.assert_array_equal(np.asarray(gi1), np.asarray(gi2))
-    np.testing.assert_array_equal(np.asarray(gj1), np.asarray(gj2))
-    # zero-pad to 4 chunks of 2048: 4*16*21 < 8192 -> per-chunk masked
-    # gathers (the small-D_cap regime); dead rows decode to nothing
-    wpad = jnp.concatenate([words, jnp.zeros((8192 - S, 128), jnp.int32)])
-    gi3, gj3, tot3 = _moment_decode(
-        tuple(wpad[i * 2048:(i + 1) * 2048] for i in range(4)), *args)
-    assert int(tot3) == int(tot1)
-    np.testing.assert_array_equal(np.asarray(gi1), np.asarray(gi3))
-    np.testing.assert_array_equal(np.asarray(gj1), np.asarray(gj3))

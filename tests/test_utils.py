@@ -44,7 +44,7 @@ def test_ctz_and_trailing_ones():
 
 
 def test_scalar_math():
-    # volumes.py keeps these in coordinate-tuple SoA form (TPU layout)
+    # volumes.py keeps these in coordinate-tuple SoA form (the package layout)
     x = tuple(jnp.asarray(np.array(v)) for v in ([1.0, 0.5], [2.0, -1.0],
                                                  [3.0, 2.0]))
     y = tuple(jnp.asarray(np.array(v)) for v in ([4.0, 1.0], [5.0, 1.0],
